@@ -9,12 +9,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build: compiles the kernels from ya_vo_tpu_torch/csrc with nvcc;
   3. kernels: each CUDA kernel against its plain PyTorch version on the card
      at the main path's shapes (one 376x1241 frame pair of the stamps world,
-     2048 keypoints, border clamps and dead slots among them), with times
-     for both;
+     2048 keypoints, border clamps and dead slots among them; the LK kernel
+     level by level through its one-level mode, then as the whole tracker
+     in one launch). Times: the kernel's device time (`torch.profiler`
+     device events of the kernel's own name, free of host issue), the
+     wrapper call's time by CUDA events (host issue included), the plain
+     version's, the least time the card could take for the same work
+     (bound), and, for Hamming, one PyTorch call that computes the same
+     function (`torch._int_mm` on +-1 int8, the yardstick; the port never
+     calls it);
   4. main path: `create_frontend(cfg, cam, device="cuda").run(frames)` over
      the 40-frame stamps world at VOConfig() defaults with window BA off:
-     0 resets, ATE_sim3 < 0.05, 2048 keypoints every tracked frame, and
-     every kernel launched by that run.
+     0 resets, ATE_sim3 < 0.05, 2048 keypoints every tracked frame, every
+     kernel launched by that run, and the LK kernel once a tracked frame.
 Prints a JSON line with the kernels' results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -29,6 +36,8 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 SEQ = dict(n_frames=40, n_landmarks=1200, height=376, width=1241, step=0.5,
            yaw_rate=0.002, seed=11, corridor=True)
@@ -42,7 +51,9 @@ REPS = 20
 # LK_ATOL + LK_RTOL * |plain|. Measured on an H100 over three frame pairs
 # of the stamps world: |duv| <= 1.5e-5 px but for one eps flip (0.068 px),
 # errors of at most 1.2e-7 (eig), 1.2e-5 (res) and 4.7e-5 (std, which
-# loses absolute precision to E[T^2] - E[T]^2) of the plain value.
+# loses absolute precision to E[T^2] - E[T]^2) of the plain value; the
+# one-launch kernel, whose iterations regroup the sums, on one frame pair:
+# |duv| <= 1.5e-5 px but the same flip, res within 1.5e-5.
 # The whole tracker: status equal on all but LK_FLIPS keypoints, clamped
 # coordinates within LK_UV_TOL, other positions past it on at most
 # LK_TRACK_FRAC of the tracks, since a coarse level's eps flip moves the
@@ -54,6 +65,24 @@ LK_RTOL = 1e-4
 LK_ATOL = (1e-5, 1e-4, 1e-3)   # eig, res, std
 LK_TRACK_FRAC = 0.01
 
+# The card's published peaks (H100 SXM data sheet, dense, at 700 W): HBM
+# bytes/s, 32-bit operations/s outside the tensor cores, int8 tensor ops/s.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+INT8_OPS_S = 1979e12
+# Operations of the LK function, counted from the plain version's arithmetic
+# (index math not counted; a bilinear sample is 3 lerps of 2 mul + 1 add):
+# the 13x13 template (169 samples, central differences, T and T^2 sums,
+# the 2x2 normal matrix), one iteration (121 samples, error, mean, the two
+# gradient dot products) and the final residual (121 samples, |e| sum).
+LK_TEMPLATE_OPS = 169 * 9 + 121 * (4 + 1 + 2 + 6) + 30
+LK_ITER_OPS = 121 * (9 + 1 + 1 + 1 + 4) + 15
+LK_FINAL_OPS = 121 * (9 + 3)
+# FAST score map per pixel: segment test (34 compares, ~32 bit ops for the
+# run test), Sobel (14), products (3), 3x3 box sums (24), Harris (7) and a
+# separable 7x7 max with the keep test (15).
+FAST_OPS_PER_PX = 34 + 32 + 14 + 3 + 24 + 7 + 15
+
 
 def check(cond, msg: str) -> None:
     if not cond:
@@ -61,7 +90,9 @@ def check(cond, msg: str) -> None:
 
 
 def time_ms(fn, reps: int = REPS) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events."""
+    """Mean time of fn() over `reps` back-to-back calls, by CUDA events
+    around them: the host's issue of each call is inside it whenever the
+    host takes longer than the card."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -72,6 +103,39 @@ def time_ms(fn, reps: int = REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel=None, reps: int = REPS, launches_per_call=None):
+    """Mean device time per fn() call over `reps` calls, free of the host's
+    issue time: the summed durations of the profiler's device events whose
+    name holds `kernel` (every device event if None), over `reps`; with
+    `launches_per_call`, the mean duration of one such event times that
+    count (the profiler may drop an event of a long run)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and (kernel is None or kernel in e.name)]
+    check(evs, f"the profiler saw no device events of {kernel}")
+    total_us = sum(e.time_range.end - e.time_range.start for e in evs)
+    if launches_per_call is not None:
+        check(len(evs) <= reps * launches_per_call,
+              f"{kernel}: {len(evs)} device events in {reps} calls, "
+              f"expected {launches_per_call} a call")
+        return total_us / len(evs) * launches_per_call / 1e3
+    return total_us / reps / 1e3
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the operations over the peak."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def card_line() -> str:
@@ -94,12 +158,18 @@ def check_fast(img, NEG, fast_cuda):
     err = (kern[both] - plain[both]).abs()
     rel = (err / plain[both].abs().clamp(min=1e-30)).max().item()
     check(rel <= 1e-5, f"fast_score: scores differ, max rel {rel}")
+    kernel = lambda: fast_cuda.fast_score_map(img, **args)  # noqa: E731
+    bound_ms, bound_by = bound(2 * img.numel() * 4,
+                               img.numel() * FAST_OPS_PER_PX, F32_OPS_S)
     return dict(max_abs_err=err.max().item(), max_rel_err=rel,
                 keep_equal_full=bool(torch.equal(keep_k, keep_p)),
                 n_kept=int(keep_k.sum()),
-                ms=time_ms(lambda: fast_cuda.fast_score_map(img, **args)),
+                device_ms=device_ms(kernel, "fast_score_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
                 plain_ms=time_ms(
-                    lambda: fast_cuda.fast_score_map_plain(img, **args)))
+                    lambda: fast_cuda.fast_score_map_plain(img, **args)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def check_hamming(d1, d2, hamming_cuda):
@@ -113,10 +183,33 @@ def check_hamming(d1, d2, hamming_cuda):
         p = hamming_cuda.hamming_matrix_plain(a, b)
         err = max(err, (k - p).abs().max().item())
     check(err == 0, f"hamming: kernel differs from plain by {err}")
+    kernel = lambda: hamming_cuda.hamming_matrix(d1, d2)  # noqa: E731
+    (K1, n_words), K2 = d1.shape, d2.shape[0]
+    n_bits = 32 * n_words
+    bound_ms, bound_by = bound(4 * (K1 + K2) * n_words + 4 * K1 * K2,
+                               2 * K1 * K2 * n_bits, INT8_OPS_S)
     return dict(max_abs_err=err,
-                ms=time_ms(lambda: hamming_cuda.hamming_matrix(d1, d2)),
+                device_ms=device_ms(kernel, "hamming_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
                 plain_ms=time_ms(
-                    lambda: hamming_cuda.hamming_matrix_plain(d1, d2)))
+                    lambda: hamming_cuda.hamming_matrix_plain(d1, d2)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=hamming_library_ms(d1, d2, hamming_cuda))
+
+
+def hamming_library_ms(d1, d2, hamming_cuda):
+    """Device time of one `torch._int_mm` on the +-1 int8 unpackings
+    (unpacked outside the timed region): the int8 tensor-core product
+    whose dot gives distance = (n_bits - dot) / 2. The port never calls
+    it; it is the yardstick. Checked against the plain distances."""
+    a = hamming_cuda.unpack_pm1(d1).to(torch.int8)
+    b = hamming_cuda.unpack_pm1(d2).to(torch.int8).T
+    dot = torch._int_mm(a, b)
+    dist = (a.shape[1] - dot) // 2
+    check(torch.equal(dist, hamming_cuda.hamming_matrix_plain(d1, d2)),
+          "hamming: torch._int_mm distances differ from the plain ones")
+    return device_ms(lambda: torch._int_mm(a, b))
 
 
 def lk_edge_cases(uv0, seed, mask, H, W):
@@ -192,21 +285,24 @@ def lk_level_errors(k, p, valid, pinned):
 def compare_lk(img0, img1, uv0, seed, mask, edge):
     """K1 against its plain version on the card, level by level on
     identical inputs (each level seeded by the kernel's previous level);
-    then the whole tracker on the card against the plain one on the CPU.
-    Returns (errors by level, the levels' inputs, the tracker's errors)."""
+    then the whole tracker (one launch) on the card against the plain one
+    on the CPU. Returns (errors by level, the two pyramids, the tracker's
+    errors); each level's errors hold the iterations the plain version ran
+    there."""
     from ya_vo_tpu_torch.tracking import lk, lk_cuda
 
     pyr0 = lk.build_pyramid(img0, 3)
     pyr1 = lk.build_pyramid(img1, 3)
-    levels, lvl_seed, per_level = [], seed / 4.0, {}
+    lvl_seed, per_level = seed / 4.0, {}
     for lvl in (2, 1, 0):
         args = (pyr0[lvl], pyr1[lvl], (uv0 / 2.0 ** lvl).contiguous(),
                 lvl_seed.contiguous(), mask)
         k = lk_cuda.track_level(*args, iters=LK_ITERS, eps=LK_EPS)
-        p = lk_cuda.track_level_plain(*args, iters=LK_ITERS, eps=LK_EPS)
+        *p, n_iters = lk_cuda.track_level_plain(
+            *args, iters=LK_ITERS, eps=LK_EPS, with_iters=True)
         per_level[lvl] = lk_level_errors(
             k, p, mask, pinned_at_clamp(p[0], edge, *args[0].shape))
-        levels.append(args)
+        per_level[lvl]["iterations"] = int(n_iters.sum())
         lvl_seed = k[0] * 2.0 if lvl > 0 else k[0]
 
     kern = lk_cuda.track(img0, img1, uv0, seed, mask)
@@ -223,7 +319,7 @@ def compare_lk(img0, img1, uv0, seed, mask, edge):
                    pinned_differ=int(((d > LK_UV_TOL) & pinned).any(1).sum()),
                    status_kernel=int(k_st.sum()),
                    status_plain=int(plain.status.sum()))
-    return per_level, levels, tracker
+    return per_level, (pyr0, pyr1), tracker
 
 
 def lk_problems(per_level, tracker) -> list:
@@ -256,19 +352,39 @@ def lk_problems(per_level, tracker) -> list:
 def check_lk(img0, img1, uv0, mask, lk_cuda):
     H, W = img0.shape
     cases = lk_edge_cases(uv0, uv0, mask, H, W)
-    per_level, levels, tracker = compare_lk(img0, img1, *cases)
+    per_level, (pyr0, pyr1), tracker = compare_lk(img0, img1, *cases)
     print("kernel lk_level errors: " + json.dumps(
         dict(per_level=per_level, tracker=tracker)), flush=True)
     bad = lk_problems(per_level, tracker)
     check(not bad, "lk: " + "; ".join(bad))
 
-    def run(fn):
-        return lambda: [fn(*a, iters=LK_ITERS, eps=LK_EPS) for a in levels]
+    uv0, seed, mask, _ = cases
 
+    def kernel():
+        return lk_cuda.track_pyramids(pyr0, pyr1, uv0, seed, mask,
+                                      iters=LK_ITERS, eps=LK_EPS)
+
+    def plain():
+        return lk_cuda.track_pyramids_plain(pyr0, pyr1, uv0, seed, mask,
+                                            iters=LK_ITERS, eps=LK_EPS)
+
+    # the tracker's work: each level of both pyramids, the keypoints, seeds
+    # and mask read once, uv, residual and status written once; the
+    # operations of the iterations the plain version ran on these inputs
+    n_live = int(mask.sum())
+    n_bytes = sum(2 * 4 * a.numel() for a in pyr0) \
+        + mask.numel() * (8 + 8 + 1 + 8 + 4 + 1)
+    n_ops = sum(n_live * (LK_TEMPLATE_OPS + LK_FINAL_OPS)
+                + s["iterations"] * LK_ITER_OPS for s in per_level.values())
+    bound_ms, bound_by = bound(n_bytes, n_ops, F32_OPS_S)
     return dict(max_abs_err=max(s["max_duv"] for s in per_level.values()),
                 **{f"track_{k}": v for k, v in tracker.items()},
-                ms=time_ms(run(lk_cuda.track_level)),
-                plain_ms=time_ms(run(lk_cuda.track_level_plain), reps=5))
+                iterations=sum(s["iterations"] for s in per_level.values()),
+                device_ms=device_ms(kernel, "lk_pyramid_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
+                plain_ms=time_ms(plain, reps=5),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def main() -> int:
@@ -276,12 +392,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from ya_vo_tpu.config import VOConfig
-        from ya_vo_tpu.viz import evaluation
         from ya_vo_tpu_torch import _build, create_frontend
+        from ya_vo_tpu_torch.config import VOConfig
         from ya_vo_tpu_torch.features import fast_cuda, hamming_cuda
         from ya_vo_tpu_torch.tracking import lk_cuda
         from ya_vo_tpu_torch.utils import synthetic
+        from ya_vo_tpu_torch.viz import evaluation
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -343,7 +459,7 @@ def main() -> int:
     ate = evaluation.ate_rmse(traj, np.linalg.inv(poses_gt),
                               with_scale=True)
     check(ate < 0.05, f"ATE_sim3 {ate} >= 0.05")
-    check(launches["lk_level"] >= 3 * n_tr, f"lk launches {launches}")
+    check(launches["lk_level"] == n_tr, f"lk launches {launches}")
     check(launches["fast_score"] >= n_tr, f"fast launches {launches}")
     check(launches["hamming"] >= n_tr, f"hamming launches {launches}")
     n_kf = sum(r.is_keyframe for r in fe.results)
@@ -358,10 +474,16 @@ def main() -> int:
                            "ya_vo_tpu/features/pallas_hamming.py:46"),
                "lk_level": ("ya_vo_tpu_torch/csrc/lk_level.cu",
                             "ya_vo_tpu/tracking/lk_pallas.py:217")}
+    # ms is the kernel's device time per call of its wrapper (per tracker
+    # call for LK); library_ms is null where no one PyTorch call computes
+    # the function (LK's pyramid solve, FAST's segment test + Harris + NMS)
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1], launches=launches[name],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"])
+                    launches_per_frame=launches[name] / n_tr,
+                    max_abs_err=r["max_abs_err"], ms=r["device_ms"],
+                    device_ms=r["device_ms"], call_ms=r["call_ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

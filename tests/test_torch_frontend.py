@@ -107,7 +107,8 @@ def reference():
 
 
 def _port_from_snapshot(jfe, snap):
-    fe = tfrontend.Frontend(make_config(), convert.camera_from_numpy(jfe.cam))
+    fe = tfrontend.Frontend(make_config(), convert.camera_from_numpy(jfe.cam),
+                         device="cpu")
     convert.frontend_state_from_numpy(fe, snap)
     return fe
 
@@ -149,7 +150,8 @@ def test_whole_slice_matches_jax(reference, monkeypatch):
     imgs, poses, jfe, *_ = reference
     _inject_jax_draw(monkeypatch, make_config().ransac.seed)
     _build.reset_launches()
-    fe = create_frontend(make_config(), convert.camera_from_numpy(jfe.cam))
+    fe = create_frontend(make_config(), convert.camera_from_numpy(jfe.cam),
+                         device="cpu")
     traj = fe.run(imgs, pipelined=True)
     assert fe.n_resets == 0 and jfe.n_resets == 0
     assert [r.status for r in fe.results] == [r.status for r in jfe.results]
@@ -235,20 +237,21 @@ def test_unsupported_configs_raise():
     cam = tsynthetic.kitti_camera()
     base = make_config()
     with pytest.raises(NotImplementedError, match="window BA"):
-        create_frontend(VOConfig(), cam)
+        create_frontend(VOConfig(), cam, device="cpu")
     with pytest.raises(NotImplementedError, match="lk_template"):
         create_frontend(dataclasses.replace(base, tracking=dataclasses.replace(
-            base.tracking, lk_template="anchor")), cam)
+            base.tracking, lk_template="anchor")), cam, device="cpu")
     with pytest.raises(NotImplementedError, match="photometric_norm"):
         create_frontend(dataclasses.replace(base, features=dataclasses.replace(
-            base.features, photometric_norm=True)), cam)
+            base.features, photometric_norm=True)), cam, device="cpu")
     with pytest.raises(ValueError, match="monocular"):
-        create_frontend(dataclasses.replace(base, camera_type="stereo"), cam)
+        create_frontend(dataclasses.replace(base, camera_type="stereo"), cam,
+                        device="cpu")
 
 
 def test_tracking_failure_raises_instead_of_resetting():
     imgs, *_, cam = tsynthetic.render_sequence(**dict(SEQ, n_frames=3))
-    fe = create_frontend(make_config(), cam)
+    fe = create_frontend(make_config(), cam, device="cpu")
     fe.run(imgs[:2])
     blank = np.full_like(imgs[2], 25)
     with pytest.raises(NotImplementedError, match="reset"):
@@ -258,29 +261,48 @@ def test_tracking_failure_raises_instead_of_resetting():
 def test_tf32_off():
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    create_frontend(make_config(), tsynthetic.kitti_camera())
+    create_frontend(make_config(), tsynthetic.kitti_camera(), device="cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
 
 
 def test_port_runs_without_jax():
+    """Every module of the port and chip_smoke.py imported, and three
+    frames run, in a fresh interpreter: no JAX and nothing of the JAX
+    package is loaded."""
     code = (
-        "import sys, dataclasses\n"
+        "import sys, dataclasses, importlib, pkgutil\n"
+        "import chip_smoke, ya_vo_tpu_torch\n"
+        "for m in pkgutil.walk_packages(ya_vo_tpu_torch.__path__,\n"
+        "                               'ya_vo_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from ya_vo_tpu_torch import create_frontend\n"
+        "from ya_vo_tpu_torch.config import VOConfig\n"
         "from ya_vo_tpu_torch.utils import synthetic\n"
-        "from ya_vo_tpu.config import VOConfig\n"
         "imgs, _, _, cam = synthetic.render_sequence(n_frames=3, "
         "n_landmarks=500, height=256, width=768, step=0.4, seed=7)\n"
         "cfg = VOConfig()\n"
         "cfg = dataclasses.replace(\n"
         "    cfg, ba=dataclasses.replace(cfg.ba, enabled=False),\n"
         "    tracking=dataclasses.replace(cfg.tracking, min_ba_inliers=15))\n"
-        "create_frontend(cfg, cam).run(imgs)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib')))\n"
+        "create_frontend(cfg, cam, device='cpu').run(imgs)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ya_vo_tpu') "
+        "or m.startswith(('jax.', 'jaxlib', 'ya_vo_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("build", [create_frontend, tfrontend.Frontend])
+def test_frontend_defaults_to_the_card(build):
+    """Without `device` the frontend is built on the CUDA card; with none
+    it raises rather than run on the CPU."""
+    cam = tsynthetic.kitti_camera()
+    if torch.cuda.is_available():
+        assert build(make_config(), cam).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(make_config(), cam)

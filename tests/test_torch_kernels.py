@@ -64,11 +64,12 @@ def test_hamming_kernel_exact(cuda):
 @pytest.mark.cuda
 def test_lk_kernel_matches_plain(cuda, frames):
     """chip_smoke's check at a smaller size on FAST corners with seeds
-    moved by up to a few px, border clamps and dead slots among them: level
-    by level on identical inputs, positions within LK_UV_TOL px and eig,
-    res and std within LK_ATOL + LK_RTOL |plain|, dead slots equal; the
-    whole tracker's status equal keypoint by keypoint (LK_FLIPS and
-    LK_TRACK_FRAC as chip_smoke.py states them)."""
+    moved by up to a few px, border clamps and dead slots among them: the
+    kernel with a one-level table, level by level on identical inputs,
+    positions within LK_UV_TOL px and eig, res and std within LK_ATOL +
+    LK_RTOL |plain|, dead slots equal; then the whole tracker in one launch,
+    status equal keypoint by keypoint (LK_FLIPS and LK_TRACK_FRAC as
+    chip_smoke.py states them)."""
     kp = fast.detect(frames[0], max_keypoints=256)
     rng = np.random.default_rng(0)
     seed = kp.uv + torch.as_tensor(rng.normal(0, 1.0, size=(256, 2)),
@@ -83,6 +84,31 @@ def test_lk_kernel_matches_plain(cuda, frames):
 
 
 @pytest.mark.cuda
+def test_lk_tracker_is_one_launch(cuda, frames):
+    """One tracker call launches the kernel once, whatever the levels."""
+    uv = torch.full((64, 2), 100.0, device=cuda)
+    mask = torch.ones(64, dtype=torch.bool, device=cuda)
+    for levels in (1, 3, 4):
+        _build.reset_launches()
+        lk_cuda.track(frames[0].to(cuda), frames[1].to(cuda), uv, uv, mask,
+                      levels=levels)
+        assert _build.LAUNCHES["lk_level"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words", [1, 4, 12, 16])
+def test_hamming_kernel_exact_other_lengths(cuda, n_words):
+    """Descriptors shorter than 256 bits are zero-padded to the kernel's
+    8 words, longer ones take its 16-word instance; ragged shapes."""
+    gen = torch.Generator().manual_seed(n_words)
+    d1, d2 = (torch.randint(-2 ** 31, 2 ** 31, (k, n_words), generator=gen,
+                            dtype=torch.int64).to(torch.int32)
+              for k in (77, 130))
+    kern = hamming_cuda.hamming_matrix(d1.to(cuda), d2.to(cuda)).cpu()
+    assert torch.equal(kern, hamming_cuda.hamming_matrix(d1, d2))
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_bad_cuda_input(cuda):
     img = torch.zeros((64, 64), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError):
@@ -91,6 +117,14 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
     d = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         hamming_cuda.hamming_matrix(d, d[:, :4].contiguous())
+    d17 = torch.zeros((8, 17), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1 to 16"):
+        hamming_cuda.hamming_matrix(d17, d17)
+    pyr = [torch.zeros((64, 64), device=cuda)] * 5
+    uv = torch.zeros((4, 2), device=cuda)
+    with pytest.raises(ValueError, match="1 to 4 levels"):
+        lk_cuda.track_pyramids(pyr, pyr, uv, uv,
+                               torch.ones(4, dtype=torch.bool, device=cuda))
 
 
 def test_cpu_tensors_take_the_plain_versions(frames):
@@ -100,8 +134,69 @@ def test_cpu_tensors_take_the_plain_versions(frames):
     d = torch.zeros((4, 8), dtype=torch.int32)
     hamming_cuda.hamming_matrix(d, d)
     uv = torch.full((8, 2), 50.0)
-    lk_cuda.track(frames[0], frames[1], uv, uv, torch.ones(8, dtype=bool))
+    mask = torch.ones(8, dtype=bool)
+    lk_cuda.track(frames[0], frames[1], uv, uv, mask)
+    pyr = lk_cuda.build_pyramid(frames[0].float(), 3)
+    lk_cuda.track_pyramids(pyr, pyr, uv, uv, mask)
+    lk_cuda.track_level(pyr[0], pyr[0], uv, uv, mask, iters=30, eps=0.01)
     assert _build.LAUNCHES == {"fast_score": 0, "hamming": 0, "lk_level": 0}
+
+
+def test_lk_level_table_from_pyramids(frames):
+    """The kernel's by-value level table: each level's pointers, size and
+    padded size, level 0 first; 1 to MAX_LK_LEVELS levels of equal sizes in
+    both pyramids, else it raises."""
+    pyr0 = lk_cuda.build_pyramid(frames[0].float(), 4)
+    pyr1 = lk_cuda.build_pyramid(frames[1].float(), 4)
+    lv = lk_cuda.level_descriptors(pyr0, pyr1)
+    assert lv.n == 4 == _build.MAX_LK_LEVELS
+    assert [(lv.H[i], lv.W[i]) for i in range(4)] == [
+        (192, 640), (96, 320), (48, 160), (24, 80)]
+    assert [(lv.Hp[i], lv.Wp[i]) for i in range(4)] == [
+        lk_cuda.padded_size(lv.H[i], lv.W[i]) for i in range(4)] == [
+        (192, 640), (96, 384), (48, 256), (32, 256)]
+    assert [lv.img0[i] for i in range(4)] == [p.data_ptr() for p in pyr0]
+    assert [lv.img1[i] for i in range(4)] == [p.data_ptr() for p in pyr1]
+    assert lk_cuda.level_descriptors(pyr0[:1], pyr1[:1]).n == 1
+    five = pyr0 + (pyr0[-1][::2, ::2].contiguous(),)
+    with pytest.raises(ValueError, match="1 to 4 levels"):
+        lk_cuda.level_descriptors(five, five)
+    with pytest.raises(ValueError, match="1 to 4 levels"):
+        lk_cuda.level_descriptors(pyr0, pyr1[:3])
+    with pytest.raises(ValueError, match="shapes"):
+        lk_cuda.level_descriptors(pyr0[:2], (pyr1[0], pyr1[0]))
+
+
+def test_lk_plain_iteration_counts(frames):
+    """The plain tracker's per-keypoint iteration counts (a flag the main
+    path never sets) leave its outputs as they are: at most `iters` a
+    level, 0 on dead slots, and one level's counts agree with the level
+    solve's."""
+    kp = fast.detect(frames[0], max_keypoints=64)
+    rng = np.random.default_rng(1)
+    seed = kp.uv + torch.as_tensor(rng.normal(0, 2.0, size=(64, 2)),
+                                   dtype=torch.float32)
+    mask = kp.mask.clone()
+    mask[::7] = False
+    pyr0 = lk_cuda.build_pyramid(frames[0].float(), 3)
+    pyr1 = lk_cuda.build_pyramid(frames[1].float(), 3)
+    flow = lk_cuda.track_pyramids_plain(pyr0, pyr1, kp.uv, seed, mask)
+    flow_i, iters = lk_cuda.track_pyramids_plain(pyr0, pyr1, kp.uv, seed,
+                                                 mask, with_iters=True)
+    for a, b in zip(flow, flow_i):
+        assert torch.equal(a, b)
+    assert iters.shape == (3, 64) and iters.dtype == torch.int64
+    assert int(iters.min()) >= 0 and int(iters.max()) <= 30
+    assert (iters[:, ~mask] == 0).all() and (iters[:, mask] >= 1).all()
+    *out, n = lk_cuda.track_level_plain(pyr0[2], pyr1[2],
+                                        (kp.uv / 4).contiguous(),
+                                        (seed / 4).contiguous(), mask,
+                                        iters=30, eps=0.01, with_iters=True)
+    assert torch.equal(n, iters[0])
+    for a, b in zip(out, lk_cuda.track_level_plain(
+            pyr0[2], pyr1[2], (kp.uv / 4).contiguous(),
+            (seed / 4).contiguous(), mask, iters=30, eps=0.01)):
+        assert torch.equal(a, b)
 
 
 def test_profile_busy_time_counts_overlaps_once():

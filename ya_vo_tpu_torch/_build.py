@@ -35,15 +35,27 @@ LAUNCHES = {name: 0 for name in KERNELS}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+MAX_LK_LEVELS = 4
+
+
+class LkLevels(ctypes.Structure):
+    """`Levels` of csrc/lk_level.cu, passed by value: both pyramids' level
+    pointers, their sizes and padded sizes, and the number of levels."""
+    _fields_ = [("img0", _P * MAX_LK_LEVELS), ("img1", _P * MAX_LK_LEVELS),
+                ("H", _I * MAX_LK_LEVELS), ("W", _I * MAX_LK_LEVELS),
+                ("Hp", _I * MAX_LK_LEVELS), ("Wp", _I * MAX_LK_LEVELS),
+                ("n", _I)]
+
+
 _SIGNATURES = {
     # img, out, H, W, threshold, arc_length, harris_k, nms_radius, stream
     "yavo_fast_score": [_P, _P, _I, _I, _F, _I, _F, _I, _P],
     # d1, d2, out, K1, K2, n_words, stream
     "yavo_hamming": [_P, _P, _P, _I, _I, _I, _P],
-    # img0, img1, uv0, seed, valid, out_uv, out_eig, out_res, out_std,
-    # N, H, W, Hp, Wp, iters, eps, stream
-    "yavo_lk_level": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _P],
+    # levels, uv0, seed, valid, out_uv, out_a, out_b, out_c, out_status,
+    # N, iters, eps, min_eig, max_residual, rel_residual, mode, stream
+    "yavo_lk_level": [LkLevels, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _F, _F, _F, _F, _I, _P],
 }
 
 _lib = None

@@ -1,9 +1,12 @@
 """Hamming distance matrix: CUDA kernel and plain version.
 
 Replaces the TPU kernel `ya_vo_tpu/features/pallas_hamming.py:_hamming_kernel`
-(launched by `hamming_matrix_pallas`). The kernel is `csrc/hamming.cu`. A CPU
-tensor takes `hamming_matrix_plain`; a CUDA tensor launches the kernel or
-raises. Descriptors are [K, W] int32 tensors holding uint32 bit patterns.
+(launched by `hamming_matrix_pallas`). The kernel is `csrc/hamming.cu`: the
+bits go to the int8 tensor cores as 0/1 bytes and each distance is
+popc(a) + popc(b) - 2 <a, b>, exact. A CPU tensor takes
+`hamming_matrix_plain`; a CUDA tensor launches the kernel or raises.
+Descriptors are [K, W] int32 tensors holding uint32 bit patterns, W at most
+MAX_WORDS (512 bits).
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import torch
 
 from ya_vo_tpu_torch import _build
+
+MAX_WORDS = 16   # the kernel's longest descriptor, in 32-bit words
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
@@ -38,6 +43,9 @@ def hamming_matrix(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
                       (None, desc1.shape[1]))
     K1, Wn = desc1.shape
     K2 = desc2.shape[0]
+    if not 1 <= Wn <= MAX_WORDS:
+        raise ValueError(f"hamming: {Wn} words a descriptor, the kernel "
+                         f"takes 1 to {MAX_WORDS}")
     out = torch.empty((K1, K2), dtype=torch.int32, device=desc1.device)
     _build.launch("hamming", desc1.data_ptr(), desc2.data_ptr(),
                   out.data_ptr(), K1, K2, Wn)

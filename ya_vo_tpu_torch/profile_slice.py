@@ -19,8 +19,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ya_vo_tpu.config import VOConfig
 from ya_vo_tpu_torch import create_frontend
+from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.utils import synthetic
 
 SEQ = dict(n_frames=40, n_landmarks=1200, height=376, width=1241, step=0.5,

@@ -25,8 +25,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ya_vo_tpu.config import VOConfig
-from ya_vo_tpu.worldmap.mapstore import MapStore
+from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.core import lie
 from ya_vo_tpu_torch.core.camera import Camera
 from ya_vo_tpu_torch.features import brief, fast, matching
@@ -34,6 +33,7 @@ from ya_vo_tpu_torch.geometry import ransac
 from ya_vo_tpu_torch.geometry.triangulation import triangulate_fast
 from ya_vo_tpu_torch.tracking import lk_cuda, pose_solver
 from ya_vo_tpu_torch.utils.convert import offsets_from_numpy
+from ya_vo_tpu_torch.worldmap.mapstore import MapStore
 
 _NOT_YET = "not ported yet; queued in ROADMAP.md (Queue 1)"
 
@@ -85,7 +85,11 @@ class Frontend:
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = config
         self.cam = cam
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device if device is not None else "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the frontend runs on the card by default; "
+                "pass device='cpu' to run the plain versions on the CPU")
         self.K = cam.K(self.device)
         fc = config.features
         self._offsets = offsets_from_numpy(

@@ -1,9 +1,21 @@
 """Pyramidal inverse-compositional KLT: the level kernel and the tracker.
 
 Replaces the TPU kernel `ya_vo_tpu/tracking/lk_pallas.py:_lk_level_kernel`
-(launched by `_track_level_pallas`); `track` follows `lk_pallas.track`. The
-kernel is `csrc/lk_level.cu`. For a CPU tensor `track_level` takes
-`track_level_plain`; for a CUDA tensor it launches the kernel or raises.
+(launched by `_track_level_pallas`, once per level); `track` computes
+exactly `lk_pallas.track`'s function. The kernel is `csrc/lk_level.cu`: one
+launch per tracker call carries every keypoint through all levels (at most
+MAX_LK_LEVELS) and applies the status gate; the same kernel with a one-level
+table and raw outputs is `track_level`. A CPU tensor takes the plain
+versions (`track_pyramids_plain`, composed from `track_level_plain` and
+the torch gate); a CUDA tensor launches the kernel or raises.
+
+Bound on an H100 at the main path's shapes (376x1241, 3 levels, 2048
+slots): the levels of both pyramids read once are 4.9 MB (~1.5 us of HBM),
+and the iterations the inputs take come to ~0.1 GFLOP (~1.5 us of f32
+peak); the kernel is latency-bound on each keypoint's serial chain of
+iterations, which the design shortens by sampling from a patch staged in
+shared memory and by paying one launch and one tail per call instead of
+one per level (PERF.md).
 
 Semantics of one level, per live keypoint (both versions):
   * each level image is zero-padded to Hp = max(32, ceil8(H)) rows and
@@ -63,10 +75,12 @@ def _mean(x: torch.Tensor) -> torch.Tensor:
 
 
 def track_level_plain(img0, img1, uv0, seed, valid, *, iters: int,
-                      eps: float):
+                      eps: float, with_iters: bool = False):
     """One pyramid level for all keypoints (module docstring semantics).
     img*: [H, W] f32; uv0/seed: [N, 2]; valid: [N] bool.
-    Returns (uv [N, 2], min_eig [N], residual [N], t_std [N])."""
+    Returns (uv [N, 2], min_eig [N], residual [N], t_std [N]), and with
+    `with_iters` also the iterations each keypoint ran ([N] int64, for
+    counting the work a run needs; the tracker never sets it)."""
     H, W = img0.shape
     Hp, Wp = padded_size(H, W)
     img0 = F.pad(img0, (0, Wp - W, 0, Hp - H))
@@ -90,9 +104,12 @@ def track_level_plain(img0, img1, uv0, seed, valid, *, iters: int,
     ru = seed[:, 0].clamp(LO, Wp - 8.0)
     rv = seed[:, 1].clamp(LO, Hp - 8.0)
     active = valid.clone()
+    n_iters = torch.zeros(active.shape, dtype=torch.int64,
+                          device=active.device)
     for _ in range(iters):
         if not bool(active.any()):
             break
+        n_iters += active
         err = _windows(img1, ru, rv, 2 * HALF + 1) - T
         err = err - _mean(err)[:, None, None]
         bx, by = (err * gx).sum((1, 2)), (err * gy).sum((1, 2))
@@ -106,54 +123,90 @@ def track_level_plain(img0, img1, uv0, seed, valid, *, iters: int,
     res = _mean((_windows(img1, ru, rv, 2 * HALF + 1) - T).abs())
     uv = torch.where(valid[:, None], torch.stack([ru, rv], dim=-1), seed)
     zero = torch.zeros_like(res)
-    return (uv, torch.where(valid, min_eig, zero),
-            torch.where(valid, res, 1e9), torch.where(valid, t_std, zero))
+    out = (uv, torch.where(valid, min_eig, zero),
+           torch.where(valid, res, 1e9), torch.where(valid, t_std, zero))
+    return out + (n_iters,) if with_iters else out
 
 
-def track_level(img0, img1, uv0, seed, valid, *, iters: int, eps: float):
-    """`track_level_plain`'s outputs, by the CUDA kernel on the card."""
-    if img0.device.type == "cpu":
-        return track_level_plain(img0, img1, uv0, seed, valid, iters=iters,
-                                 eps=eps)
-    H, W = img0.shape
+def level_descriptors(pyr0, pyr1) -> _build.LkLevels:
+    """The kernel's by-value level table for two pyramids (level 0 first):
+    each level's data pointers, size and padded size. At most
+    MAX_LK_LEVELS levels; both pyramids' levels must have equal sizes."""
+    n = len(pyr0)
+    if not 1 <= n <= _build.MAX_LK_LEVELS or len(pyr1) != n:
+        raise ValueError(f"the LK kernel takes 1 to {_build.MAX_LK_LEVELS} "
+                         f"levels, got {len(pyr0)} and {len(pyr1)}")
+    lv = _build.LkLevels(n=n)
+    for i, (a, b) in enumerate(zip(pyr0, pyr1)):
+        if a.shape != b.shape or a.dim() != 2:
+            raise ValueError(f"level {i}: images of shapes {tuple(a.shape)} "
+                             f"and {tuple(b.shape)}")
+        H, W = a.shape
+        lv.img0[i], lv.img1[i] = a.data_ptr(), b.data_ptr()
+        lv.H[i], lv.W[i] = H, W
+        lv.Hp[i], lv.Wp[i] = padded_size(H, W)
+    return lv
+
+
+def _launch(pyr0, pyr1, uv0, seed, valid, outs, mode: int, *, iters: int,
+            eps: float, min_eig: float = 0.0, max_residual: float = 0.0,
+            rel_residual: float = 0.0) -> None:
+    """Check the inputs and launch csrc/lk_level.cu's kernel over the
+    pyramids: mode 1 the tracker, mode 0 one level with raw outputs."""
+    for i, (a, b) in enumerate(zip(pyr0, pyr1)):
+        _build.check_cuda(f"lk img0 level {i}", a, torch.float32,
+                          (None, None))
+        _build.check_cuda(f"lk img1 level {i}", b, torch.float32, a.shape)
     N = uv0.shape[0]
-    _build.check_cuda("lk img0", img0, torch.float32, (None, None))
-    _build.check_cuda("lk img1", img1, torch.float32, (H, W))
     _build.check_cuda("lk uv0", uv0, torch.float32, (None, 2))
     _build.check_cuda("lk seed", seed, torch.float32, (N, 2))
     _build.check_cuda("lk valid", valid, torch.bool, (N,))
-    Hp, Wp = padded_size(H, W)
-    valid_i = valid.to(torch.int32)
+    uv, a, b, c, status = outs
+    args = (level_descriptors(pyr0, pyr1), uv0.data_ptr(), seed.data_ptr(),
+            valid.data_ptr(), uv.data_ptr(), a.data_ptr(),
+            b.data_ptr() if b is not None else None,
+            c.data_ptr() if c is not None else None,
+            status.data_ptr() if status is not None else None, N,
+            int(iters), float(eps), float(min_eig), float(max_residual),
+            float(rel_residual), mode)
+    _build.launch("lk_level", *args)
+
+
+def track_level(img0, img1, uv0, seed, valid, *, iters: int, eps: float):
+    """`track_level_plain`'s outputs, by the CUDA kernel on the card (one
+    level: the tracker's kernel with a one-level table and raw outputs)."""
+    if img0.device.type == "cpu":
+        return track_level_plain(img0, img1, uv0, seed, valid, iters=iters,
+                                 eps=eps)
+    N = uv0.shape[0]
     uv = torch.empty((N, 2), dtype=torch.float32, device=img0.device)
     eig, res, std = (torch.empty(N, dtype=torch.float32, device=img0.device)
                      for _ in range(3))
-    _build.launch("lk_level", img0.data_ptr(), img1.data_ptr(),
-                  uv0.data_ptr(), seed.data_ptr(), valid_i.data_ptr(),
-                  uv.data_ptr(), eig.data_ptr(), res.data_ptr(),
-                  std.data_ptr(), N, H, W, Hp, Wp, int(iters), float(eps))
+    _launch((img0,), (img1,), uv0, seed, valid, (uv, eig, res, std, None),
+            0, iters=iters, eps=eps)
     return uv, eig, res, std
 
 
-def track(img0, img1, uv0, uv_init, mask, *, levels: int = 3, half: int = 5,
-          iters: int = 30, eps: float = 0.01, min_eig: float = 1e-3,
-          max_residual: float = 12.0, rel_residual: float = 0.5) -> FlowResult:
-    """Track uv0 from img0 to img1, seeded at uv_init, coarse to fine.
-    Status: live, well conditioned at every level, inside the image by
-    HALF, and residual < max(max_residual, rel_residual * std(template))."""
-    if half != HALF:
-        raise ValueError(f"the LK kernel has an 11x11 window (half={HALF})")
-    img0 = img0.to(torch.float32)
-    img1 = img1.to(torch.float32)
-    H, W = img0.shape
-    pyr0 = build_pyramid(img0, levels)
-    pyr1 = build_pyramid(img1, levels)
+def track_pyramids_plain(pyr0, pyr1, uv0, uv_init, mask, *, iters: int = 30,
+                         eps: float = 0.01, min_eig: float = 1e-3,
+                         max_residual: float = 12.0,
+                         rel_residual: float = 0.5, with_iters: bool = False):
+    """The tracker over two pyramids (level 0 first), composed from
+    `track_level_plain` and the torch gate: coarse to fine, each level
+    seeded by the previous one's uv * 2. With `with_iters`, also returns
+    the iterations each keypoint ran at each level ([levels, N], coarsest
+    first)."""
+    levels = len(pyr0)
+    H, W = pyr0[0].shape
     uv = uv_init / 2.0 ** (levels - 1)
     cond_all = torch.ones_like(mask)
+    n_iters = []
     for lvl in range(levels - 1, -1, -1):
         s = 2.0 ** lvl
-        uv, eig, residual, t_std = track_level(
+        uv, eig, residual, t_std, *it = track_level_plain(
             pyr0[lvl], pyr1[lvl], (uv0 / s).contiguous(), uv.contiguous(),
-            mask, iters=iters, eps=eps)
+            mask, iters=iters, eps=eps, with_iters=with_iters)
+        n_iters += it
         cond_all = cond_all & (eig > min_eig)
         if lvl > 0:
             uv = uv * 2.0
@@ -161,4 +214,43 @@ def track(img0, img1, uv0, uv_init, mask, *, levels: int = 3, half: int = 5,
                  & (uv[:, 1] >= HALF) & (uv[:, 1] < H - HALF))
     gate = torch.clamp(rel_residual * t_std, min=max_residual)
     status = mask & cond_all & in_bounds & (residual < gate)
+    flow = FlowResult(uv=uv, status=status, residual=residual)
+    return (flow, torch.stack(n_iters)) if with_iters else flow
+
+
+def track_pyramids(pyr0, pyr1, uv0, uv_init, mask, *, iters: int = 30,
+                   eps: float = 0.01, min_eig: float = 1e-3,
+                   max_residual: float = 12.0,
+                   rel_residual: float = 0.5) -> FlowResult:
+    """`track_pyramids_plain`'s outputs; on the card in one launch of the
+    CUDA kernel."""
+    kw = dict(iters=iters, eps=eps, min_eig=min_eig,
+              max_residual=max_residual, rel_residual=rel_residual)
+    if pyr0[0].device.type == "cpu":
+        return track_pyramids_plain(pyr0, pyr1, uv0, uv_init, mask, **kw)
+    N = uv0.shape[0]
+    dev = uv0.device
+    uv = torch.empty((N, 2), dtype=torch.float32, device=dev)
+    residual = torch.empty(N, dtype=torch.float32, device=dev)
+    status = torch.empty(N, dtype=torch.bool, device=dev)
+    _launch(pyr0, pyr1, uv0, uv_init, mask,
+            (uv, residual, None, None, status), 1, **kw)
     return FlowResult(uv=uv, status=status, residual=residual)
+
+
+def track(img0, img1, uv0, uv_init, mask, *, levels: int = 3, half: int = 5,
+          iters: int = 30, eps: float = 0.01, min_eig: float = 1e-3,
+          max_residual: float = 12.0, rel_residual: float = 0.5) -> FlowResult:
+    """Track uv0 from img0 to img1, seeded at uv_init, coarse to fine.
+    Status: live, well conditioned at every level, inside the image by
+    HALF, and residual < max(max_residual, rel_residual * std(template)).
+    The pyramids are built with PyTorch; on the card the whole solve is
+    one launch of the kernel."""
+    if half != HALF:
+        raise ValueError(f"the LK kernel has an 11x11 window (half={HALF})")
+    img0 = img0.to(torch.float32)
+    img1 = img1.to(torch.float32)
+    return track_pyramids(
+        build_pyramid(img0, levels), build_pyramid(img1, levels),
+        uv0.contiguous(), uv_init.contiguous(), mask, iters=iters, eps=eps,
+        min_eig=min_eig, max_residual=max_residual, rel_residual=rel_residual)
