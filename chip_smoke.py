@@ -9,19 +9,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build: compiles the kernels from ya_vo_tpu_torch/csrc with nvcc;
   3. kernels: each CUDA kernel against its plain PyTorch version on the card
      at the main path's shapes (one 376x1241 frame pair of the stamps world,
-     2048 keypoints, border clamps and dead slots among them; the LK kernel
-     level by level through its one-level mode, then as the whole tracker
-     in one launch). Times: the kernel's device time (`torch.profiler`
-     device events of the kernel's own name, free of host issue), the
-     wrapper call's time by CUDA events (host issue included), the plain
-     version's, the least time the card could take for the same work
-     (bound), and, for Hamming, one PyTorch call that computes the same
-     function (`torch._int_mm` on +-1 int8, the yardstick; the port never
-     calls it);
+     2048 keypoints, border clamps and dead slots among them; the FAST
+     kernel bit for bit, as the score map on the whole frame and as the
+     candidate set inside the detection border, with the main path's
+     parameters; the selection kernel slot for slot; the LK kernel level by
+     level through its one-level mode, then as the whole tracker in one
+     launch). Times: the kernel's device time (`torch.profiler` device
+     events of the kernel's own name, free of host issue), the wrapper
+     call's time by CUDA events (host issue included), the plain version's,
+     the least time the card could take for the same work (bound), and one
+     PyTorch call that computes the same function where there is one (the
+     yardstick; the port never calls it): `torch._int_mm` on +-1 int8 for
+     Hamming, `torch.topk` over the candidates' unique keys for the
+     selection. Then the whole `fast.detect` call: equal to the CPU's in
+     every slot, its device time (all device events of a call) and its
+     device events and kernel launches a call;
   4. main path: `create_frontend(cfg, cam, device="cuda").run(frames)` over
      the 40-frame stamps world at VOConfig() defaults with window BA off:
-     0 resets, ATE_sim3 < 0.05, 2048 keypoints every tracked frame, every
-     kernel launched by that run, and the LK kernel once a tracked frame.
+     0 resets, 2048 keypoints every tracked frame, the keyframes and
+     ATE_sim3 of the port's earlier runs (MAIN_KEYFRAMES, MAIN_ATE at four
+     digits), every kernel launched by that run, the LK kernel once a
+     tracked frame and the two FAST kernels equally often, at least once a
+     tracked frame.
 Prints a JSON line with the kernels' results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -78,10 +87,20 @@ INT8_OPS_S = 1979e12
 LK_TEMPLATE_OPS = 169 * 9 + 121 * (4 + 1 + 2 + 6) + 30
 LK_ITER_OPS = 121 * (9 + 1 + 1 + 1 + 4) + 15
 LK_FINAL_OPS = 121 * (9 + 3)
-# FAST score map per pixel: segment test (34 compares, ~32 bit ops for the
-# run test), Sobel (14), products (3), 3x3 box sums (24), Harris (7) and a
-# separable 7x7 max with the keep test (15).
-FAST_OPS_PER_PX = 34 + 32 + 14 + 3 + 24 + 7 + 15
+# Operations of the FAST candidates, counted where this run's data needs
+# them: every pixel takes the cardinal pre-test (2 bounds, 8 compares, 6
+# adds, 2 compares and an or); a pixel that passes it, the ring test (32
+# compares, 32 shifts and ors, two run tests of ~16 bit ops); a corner,
+# Harris (at each of 9 positions a Sobel pair of 12 adds, 3 products and 3
+# sums; then det, trace and the response: 7) and NMS (the (2r+1)^2 max, the
+# keep test and 4 border compares).
+FAST_PRE_OPS = 2 + 8 + 6 + 2 + 1
+FAST_RING_OPS = 32 + 32 + 2 * 16
+FAST_HARRIS_OPS = 9 * (12 + 3 + 3) + 7
+# The main path's result, as the port's earlier runs printed it (a change
+# that moves it changes the trajectory).
+MAIN_KEYFRAMES = 20
+MAIN_ATE = 0.0384
 
 
 def check(cond, msg: str) -> None:
@@ -105,12 +124,9 @@ def time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel=None, reps: int = REPS, launches_per_call=None):
-    """Mean device time per fn() call over `reps` calls, free of the host's
-    issue time: the summed durations of the profiler's device events whose
-    name holds `kernel` (every device event if None), over `reps`; with
-    `launches_per_call`, the mean duration of one such event times that
-    count (the profiler may drop an event of a long run)."""
+def profiled_events(fn, reps: int = REPS):
+    """The profiler's CPU and device events over `reps` calls of fn, after
+    one call outside the profile."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -118,7 +134,17 @@ def device_ms(fn, kernel=None, reps: int = REPS, launches_per_call=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    return prof.events()
+
+
+def device_ms(fn, kernel=None, reps: int = REPS, launches_per_call=None):
+    """Mean device time per fn() call over `reps` calls, free of the host's
+    issue time: the summed durations of the profiler's device events whose
+    name holds `kernel` (every device event if None), over `reps`; with
+    `launches_per_call`, the mean duration of one such event times that
+    count (the profiler may drop an event of a long run)."""
+    evs = [e for e in profiled_events(fn, reps)
+           if e.device_type == DeviceType.CUDA
            and (kernel is None or kernel in e.name)]
     check(evs, f"the profiler saw no device events of {kernel}")
     total_us = sum(e.time_range.end - e.time_range.start for e in evs)
@@ -146,30 +172,150 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_fast(img, NEG, fast_cuda):
-    args = dict(threshold=20.0, arc_length=12, harris_k=0.04, nms_radius=3)
+def bits_equal(a, b) -> bool:
+    """Same shape and dtype and the same bits in every element (so -0 is
+    not +0); bools and integers by value."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def fast_work(img, args, fast_cuda) -> dict:
+    """What the FAST candidates' bound counts on this frame: pixels, those
+    that pass the cardinal pre-test, and segment-test corners (from the
+    plain version's pieces)."""
+    f = img.to(torch.float32)
+    t, n = args["threshold"], args["arc_length"]
+    taps = [fast_cuda._shift(f, dv, du)
+            for dv, du in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+    n_bright = sum((v > f + t).to(torch.int32) for v in taps)
+    n_dark = sum((v < f - t).to(torch.int32) for v in taps)
+    pre = (n_bright >= n // 4) | (n_dark >= n // 4)
+    corner = fast_cuda.fast_response(f, t, n)
+    return dict(pixels=img.numel(), pretest=int(pre.sum()),
+                corners=int(corner.sum()))
+
+
+def check_fast(img, kw, fast_cuda):
+    """K2 on the uint8 frame with the main path's parameters `kw`: the map
+    (the kernel at border 0, scattered) equal to the plain map bit for bit
+    on the whole frame, edges included; the candidates inside the border
+    equal to the plain ones as a set, scores bit for bit. Returns the
+    results and the kernel's candidates."""
+    args = dict(threshold=float(kw["threshold"]), arc_length=kw["arc_length"],
+                harris_k=kw["harris_k"], nms_radius=kw["nms_radius"])
+    border = kw["border"]
     kern = fast_cuda.fast_score_map(img, **args)
-    plain = fast_cuda.fast_score_map_plain(img, **args)
-    keep_k, keep_p = kern > NEG / 2, plain > NEG / 2
-    inner = (slice(16, -16), slice(16, -16))
-    check(torch.equal(keep_k[inner], keep_p[inner]),
-          "fast_score: keep masks differ on the interior")
-    both = keep_k & keep_p
-    err = (kern[both] - plain[both]).abs()
-    rel = (err / plain[both].abs().clamp(min=1e-30)).max().item()
-    check(rel <= 1e-5, f"fast_score: scores differ, max rel {rel}")
-    kernel = lambda: fast_cuda.fast_score_map(img, **args)  # noqa: E731
-    bound_ms, bound_by = bound(2 * img.numel() * 4,
-                               img.numel() * FAST_OPS_PER_PX, F32_OPS_S)
-    return dict(max_abs_err=err.max().item(), max_rel_err=rel,
-                keep_equal_full=bool(torch.equal(keep_k, keep_p)),
-                n_kept=int(keep_k.sum()),
+    plain = fast_cuda.fast_score_map_plain(img.to(torch.float32), **args)
+    n_map_diff = int((kern.view(torch.int32)
+                      != plain.view(torch.int32)).sum())
+    check(n_map_diff == 0,
+          f"fast_score: the map differs from the plain one at {n_map_diff} px")
+    cand = fast_cuda.fast_candidates(img, border=border, **args)
+    ref = fast_cuda.fast_candidates_plain(img, border=border, **args)
+    n = int(cand.count)
+    idx, order = cand.idx[:n].sort()
+    check(n == int(ref.count) and torch.equal(idx, ref.idx)
+          and bits_equal(cand.score[:n][order], ref.score),
+          f"fast_score: {n} candidates at border {border}, plain "
+          f"{int(ref.count)}, or their indices or scores differ")
+
+    def kernel():
+        return fast_cuda.fast_candidates(img, border=border, **args)
+
+    # uint8 in, (score, index) of each candidate and the count out; the
+    # operations this frame needs (fast_work)
+    work = fast_work(img, args, fast_cuda)
+    nms_ops = (2 * kw["nms_radius"] + 1) ** 2 + 1 + 4
+    bound_ms, bound_by = bound(
+        img.numel() + 8 * n + 4,
+        work["pixels"] * FAST_PRE_OPS + work["pretest"] * FAST_RING_OPS
+        + work["corners"] * (FAST_HARRIS_OPS + nms_ops), F32_OPS_S)
+    return dict(max_abs_err=0.0, map_px_differ=n_map_diff,
+                n_map_kept=int((plain > fast_cuda.NEG / 2).sum()),
+                n_candidates=n, **work,
                 device_ms=device_ms(kernel, "fast_score_kernel",
                                     launches_per_call=1),
                 call_ms=time_ms(kernel),
-                plain_ms=time_ms(
-                    lambda: fast_cuda.fast_score_map_plain(img, **args)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                plain_ms=time_ms(lambda: fast_cuda.fast_candidates_plain(
+                    img, border=border, **args)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None), cand
+
+
+def topk_keys(cand):
+    """The candidates' unique int64 keys, in the order of the selection:
+    score (-0 as +0; signed-int order of the float bits) above, the
+    inverted flat index below."""
+    n = int(cand.count)
+    s = (cand.score[:n] + 0.0).view(torch.int32)
+    s = s ^ ((s >> 31) & 0x7FFFFFFF)
+    return (s.to(torch.int64) << 32) | (0xFFFFFFFF - cand.idx[:n].to(
+        torch.int64))
+
+
+def check_select(cand, kw, H, W, fast_cuda):
+    """`fast_select` against the plain sort path, slot for slot, on K2's
+    candidates; its yardstick is one `torch.topk` over the candidates'
+    unique keys (checked to pick the same candidates in the same order)."""
+    K = kw["max_keypoints"]
+    kern = fast_cuda.select_top_k(*cand, H=H, W=W, k=K)
+    plain = fast_cuda.select_top_k_plain(*cand, H=H, W=W, k=K)
+    check(all(bits_equal(a, b) for a, b in zip(kern, plain)),
+          "fast_select: slots differ from the plain sort path")
+    n = int(cand.count)
+    keys = topk_keys(cand)
+    m = min(K, n)
+    top = torch.topk(keys, m).indices
+    idx = cand.idx[:n][top].to(torch.int64)
+    check(torch.equal(torch.stack([idx % W, idx // W], -1).float(),
+                      kern[0][:m]), "fast_select: torch.topk's order differs")
+
+    def kernel():
+        return fast_cuda.select_top_k(*cand, H=H, W=W, k=K)
+
+    # the candidates and the count in, K slots (uv, score, mask) out; the
+    # compares of a comparison sort of the candidates
+    bound_ms, bound_by = bound(8 * n + 4 + K * (8 + 4 + 1),
+                               n * max(1, int(np.ceil(np.log2(max(n, 2))))),
+                               F32_OPS_S)
+    return dict(max_abs_err=0.0, n_candidates=n, k=K,
+                device_ms=device_ms(kernel, "fast_select_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: fast_cuda.select_top_k_plain(
+                    *cand, H=H, W=W, k=K)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=device_ms(lambda: torch.topk(keys, m)))
+
+
+def check_detect(img, kw, fast, _build):
+    """The whole `fast.detect` on the card equals `detect` on the CPU in
+    every slot (masked slots included); its device time (all device events
+    of a call), call time, device events (kernels, copies, memsets) and
+    CUDA runtime launch calls a call."""
+    kern = fast.detect(img, **kw)
+    plain = fast.detect(img.cpu(), **kw)
+    check(all(bits_equal(a.cpu(), b) for a, b in zip(kern, plain)),
+          "detect: the card's keypoints differ from the CPU's")
+    _build.reset_launches()
+    fast.detect(img, **kw)
+    kernels = {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    def call():
+        return fast.detect(img, **kw)
+
+    evs = profiled_events(call)
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    n_launch = sum(e.device_type == DeviceType.CPU
+                   and e.name.startswith("cudaLaunch") for e in evs)
+    return dict(n_valid=int(plain.mask.sum()), kernels_a_call=kernels,
+                device_events=len(dev) / REPS,
+                runtime_launches=n_launch / REPS,
+                device_ms=sum(e.time_range.end - e.time_range.start
+                              for e in dev) / REPS / 1e3,
+                call_ms=time_ms(call))
 
 
 def check_hamming(d1, d2, hamming_cuda):
@@ -394,8 +540,9 @@ def main() -> int:
     try:
         from ya_vo_tpu_torch import _build, create_frontend
         from ya_vo_tpu_torch.config import VOConfig
-        from ya_vo_tpu_torch.features import fast_cuda, hamming_cuda
+        from ya_vo_tpu_torch.features import fast, fast_cuda, hamming_cuda
         from ya_vo_tpu_torch.tracking import lk_cuda
+        from ya_vo_tpu_torch.tracking.frontend import detect_kwargs
         from ya_vo_tpu_torch.utils import synthetic
         from ya_vo_tpu_torch.viz import evaluation
     except ImportError as e:
@@ -428,14 +575,19 @@ def main() -> int:
     kp1, desc1 = probe._extract(img1)
     check(int(kp0.count()) == 2048 and int(kp1.count()) == 2048,
           "probe frames do not fill 2048 keypoints")
+    kw = detect_kwargs(cfg.features)          # as `_extract` passes them
+    fast_r, cand = check_fast(img1, kw, fast_cuda)
     results = {
-        "fast_score": check_fast(img1.float(), fast_cuda.NEG, fast_cuda),
+        "fast_score": fast_r,
+        "fast_select": check_select(cand, kw, *img1.shape, fast_cuda),
         "hamming": check_hamming(desc0, desc1, hamming_cuda),
         "lk_level": check_lk(img0.float(), img1.float(), kp0.uv,
                              kp0.mask, lk_cuda),
     }
     for name, r in results.items():
         print(f"kernel {name}: " + json.dumps(r), flush=True)
+    print("detect: " + json.dumps(check_detect(img1, kw, fast, _build)),
+          flush=True)
 
     # 4. main path
     _build.reset_launches()
@@ -458,11 +610,13 @@ def main() -> int:
           "a tracked frame did not fill 2048 keypoints")
     ate = evaluation.ate_rmse(traj, np.linalg.inv(poses_gt),
                               with_scale=True)
-    check(ate < 0.05, f"ATE_sim3 {ate} >= 0.05")
-    check(launches["lk_level"] == n_tr, f"lk launches {launches}")
-    check(launches["fast_score"] >= n_tr, f"fast launches {launches}")
-    check(launches["hamming"] >= n_tr, f"hamming launches {launches}")
     n_kf = sum(r.is_keyframe for r in fe.results)
+    check(round(ate, 4) == MAIN_ATE, f"ATE_sim3 {ate}, not {MAIN_ATE}")
+    check(n_kf == MAIN_KEYFRAMES, f"{n_kf} keyframes, not {MAIN_KEYFRAMES}")
+    check(launches["lk_level"] == n_tr, f"lk launches {launches}")
+    check(launches["fast_select"] == launches["fast_score"] >= n_tr,
+          f"fast launches {launches}")
+    check(launches["hamming"] >= n_tr, f"hamming launches {launches}")
     print("main path: " + json.dumps(dict(
         frames_per_s=n_tr / dt, tracked_frames=n_tr, seconds=dt,
         ate_sim3=ate, resets=fe.n_resets, keyframes=n_kf, launches=launches,
@@ -470,6 +624,9 @@ def main() -> int:
 
     sources = {"fast_score": ("ya_vo_tpu_torch/csrc/fast_score.cu",
                               "ya_vo_tpu/features/pallas_fast.py:70"),
+               "fast_select": ("ya_vo_tpu_torch/csrc/fast_select.cu",
+                               "ya_vo_tpu/features/fast.py:193 "
+                               "(lax.top_k, XLA)"),
                "hamming": ("ya_vo_tpu_torch/csrc/hamming.cu",
                            "ya_vo_tpu/features/pallas_hamming.py:46"),
                "lk_level": ("ya_vo_tpu_torch/csrc/lk_level.cu",

@@ -37,18 +37,125 @@ def frames():
     return [torch.as_tensor(i) for i in imgs]
 
 
-@pytest.mark.cuda
-def test_fast_score_kernel_matches_plain(cuda, frames):
-    """Same arithmetic in the same order (-fmad=false): equal keep masks
-    everywhere and scores within rtol 1e-5."""
-    img = frames[0].float()
-    args = dict(threshold=20.0, arc_length=12, harris_k=0.04, nms_radius=3)
+FAST = dict(threshold=20.0, arc_length=12, harris_k=0.04, nms_radius=3)
+
+
+@pytest.fixture(scope="module")
+def big():
+    """A 376x1241 frame of the main path's sequence, and uniform noise."""
+    imgs, *_ = synthetic.render_sequence(**{**chip_smoke.SEQ, "n_frames": 1})
+    noise = np.random.default_rng(5).integers(0, 256, (256, 512), np.uint8)
+    return torch.as_tensor(imgs[0]), torch.as_tensor(noise)
+
+
+def _ragged(big, size):
+    """A crop of the big frame: 192x640, 193x641 (odd rows, odd width), and
+    40x70, smaller than one 32x64 tile plus its halo."""
+    h, w = size
+    return big[0][150:150 + h, 300:300 + w].contiguous()
+
+
+def assert_fast_exact(img, cuda, border=16, **args):
+    """The kernel against its plain version: the score map (border 0) bit
+    for bit on the whole frame, edges included, and the candidates inside
+    `border` as a set, scores bit for bit."""
     plain = fast_cuda.fast_score_map(img, **args)
     kern = fast_cuda.fast_score_map(img.to(cuda), **args).cpu()
-    keep = plain > fast_cuda.NEG / 2
-    assert torch.equal(kern > fast_cuda.NEG / 2, keep) and keep.sum() > 100
-    np.testing.assert_allclose(kern[keep].numpy(), plain[keep].numpy(),
-                               rtol=1e-5)
+    assert torch.equal(kern, plain)
+    p = fast_cuda.fast_candidates(img, border=border, **args)
+    k = fast_cuda.fast_candidates(img.to(cuda), border=border, **args)
+    n = int(k.count)
+    assert n == int(p.count)
+    idx, order = k.idx[:n].cpu().sort()
+    assert torch.equal(idx, p.idx)
+    assert torch.equal(k.score[:n].cpu()[order], p.score)
+    return int((plain > fast_cuda.NEG / 2).sum())
+
+
+@pytest.mark.cuda
+def test_fast_score_kernel_matches_plain(cuda, frames):
+    """Bit for bit on the whole frame (-fmad=false, the plain version's
+    order of operations): the map at border 0, candidates at border 16."""
+    assert assert_fast_exact(frames[0], cuda, **FAST) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arc_length", [9, 12])
+@pytest.mark.parametrize("nms_radius", [0, 1, 2, 3])
+@pytest.mark.parametrize("size", [(192, 640), (193, 641), (40, 70)])
+def test_fast_candidates_kernel_exact(cuda, big, size, nms_radius,
+                                      arc_length):
+    args = dict(FAST, nms_radius=nms_radius, arc_length=arc_length)
+    assert assert_fast_exact(_ragged(big, size), cuda, border=4, **args) > 0
+
+
+@pytest.mark.cuda
+def test_fast_kernels_on_noise_and_plateaus(cuda, big):
+    """Uniform noise (corners at most pixels; at radius 0 its candidates
+    overflow `fast_select`'s shared-memory path) and the tie-plateau
+    speckle of test_detect_breaks_ties_by_index: both kernels exact."""
+    cells = np.random.default_rng(2).choice([30, 220], size=(8, 8))
+    tile = np.kron(cells, np.ones((2, 2))).astype(np.uint8)
+    speckle = torch.as_tensor(np.tile(tile, (8, 16)))
+    for img in (big[1], speckle):
+        for r in (0, 3):
+            assert_fast_exact(img, cuda, **dict(FAST, nms_radius=r))
+            for k in (64, 2048):
+                assert_detect_equal(img, cuda, max_keypoints=k,
+                                    nms_radius=r, threshold=20)
+    n0 = fast_cuda.fast_candidates(big[1].to(cuda), border=16,
+                                   **dict(FAST, nms_radius=0)).count
+    assert int(n0) > fast_cuda.MAX_SELECT_K
+
+
+def assert_detect_equal(img, cuda, **kw):
+    """`detect` on the card equals `detect` on the CPU in every slot."""
+    kp_c = fast.detect(img, **kw)
+    kp_k = fast.detect(img.to(cuda), **kw)
+    for a, b in zip(kp_k, kp_c):
+        assert torch.equal(a.cpu(), b)
+    return int(kp_c.mask.sum())
+
+
+@pytest.mark.cuda
+def test_detect_on_card_equals_cpu(cuda, big):
+    """The main path's frame and parameters, with the count below K, at K
+    and above K; two launches a call."""
+    img = big[0]
+    kw = dict(threshold=20, arc_length=12, nms_radius=3, border=16,
+              harris_k=0.04)
+    n = int(fast_cuda.fast_candidates(img, border=16, **FAST).count)
+    assert 2048 < n < fast_cuda.MAX_SELECT_K
+    for k in (2048, n, n + 500):
+        _build.reset_launches()
+        got = assert_detect_equal(img, cuda, max_keypoints=k, **kw)
+        assert got == min(k, n)
+        assert _build.LAUNCHES["fast_score"] == 1
+        assert _build.LAUNCHES["fast_select"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,low", [(1000, 2048, False), (2048, 2048, False),
+                                     (5000, 2048, False), (3000, 4096, True),
+                                     (20000, 2048, False),
+                                     (20000, 8192, True)])
+def test_fast_select_kernel_matches_plain(cuda, n, k, low):
+    """Shuffled candidates with tied scores, count below, at and above k,
+    and past the shared-memory path (20,000 > 8,192 keys); with `low`,
+    candidates among the lowest indices, so masked slots skip them."""
+    H, W = 376, 1241
+    rng = np.random.default_rng(n + k)
+    lo = 0 if low else 16 * W
+    idx = rng.choice(np.arange(lo, H * W), size=n, replace=False)
+    score = rng.choice(np.float32([-3e5, -0.0, 0.0, 2.5, 1e9]), size=n)
+    score[::3] = rng.normal(0, 1e6, size=len(score[::3]))
+    cand = (torch.as_tensor(score, dtype=torch.float32),
+            torch.as_tensor(idx, dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32))
+    plain = fast_cuda.select_top_k(*cand, H=H, W=W, k=k)
+    kern = fast_cuda.select_top_k(*(t.to(cuda) for t in cand), H=H, W=W, k=k)
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
@@ -110,10 +217,15 @@ def test_hamming_kernel_exact_other_lengths(cuda, n_words):
 
 @pytest.mark.cuda
 def test_wrappers_raise_on_bad_cuda_input(cuda):
-    img = torch.zeros((64, 64), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):
-        fast_cuda.fast_score_map(img, threshold=20.0, arc_length=12,
-                                 harris_k=0.04, nms_radius=3)
+    img = torch.zeros((64, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="torch.uint8"):
+        fast_cuda.fast_score_map(img, **FAST)
+    score = torch.zeros(16, device=cuda)
+    idx = torch.zeros(16, dtype=torch.int32, device=cuda)
+    count = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        fast_cuda.select_top_k(score, idx, count, H=376, W=1241,
+                               k=fast_cuda.MAX_SELECT_K + 1)
     d = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         hamming_cuda.hamming_matrix(d, d[:, :4].contiguous())
@@ -129,8 +241,9 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
 
 def test_cpu_tensors_take_the_plain_versions(frames):
     _build.reset_launches()
-    fast_cuda.fast_score_map(frames[0].float(), threshold=20.0,
-                             arc_length=12, harris_k=0.04, nms_radius=3)
+    fast_cuda.fast_score_map(frames[0], **FAST)
+    cand = fast_cuda.fast_candidates(frames[0], border=16, **FAST)
+    fast_cuda.select_top_k(*cand, H=192, W=640, k=64)
     d = torch.zeros((4, 8), dtype=torch.int32)
     hamming_cuda.hamming_matrix(d, d)
     uv = torch.full((8, 2), 50.0)
@@ -139,7 +252,8 @@ def test_cpu_tensors_take_the_plain_versions(frames):
     pyr = lk_cuda.build_pyramid(frames[0].float(), 3)
     lk_cuda.track_pyramids(pyr, pyr, uv, uv, mask)
     lk_cuda.track_level(pyr[0], pyr[0], uv, uv, mask, iters=30, eps=0.01)
-    assert _build.LAUNCHES == {"fast_score": 0, "hamming": 0, "lk_level": 0}
+    assert _build.LAUNCHES == {"fast_score": 0, "fast_select": 0,
+                               "hamming": 0, "lk_level": 0}
 
 
 def test_lk_level_table_from_pyramids(frames):
@@ -218,4 +332,6 @@ def test_build_is_keyed_by_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert path.name == "libyavo_kernels.so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "fast_score.cu", "hamming.cu", "lk_level.cu"]
+        "fast_score.cu", "fast_select.cu", "hamming.cu", "lk_level.cu"]
+    assert [f"{k}.cu" for k in _build.KERNELS] == sorted(
+        p.name for p in _build.CSRC.glob("*.cu"))

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels, and count their launches.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
-plain C interface, loaded with `ctypes`. The build happens at first use, into
+Every `csrc/*.cu` file is compiled by its own `nvcc`, all started together,
+and the objects are linked into one shared library with a plain C interface,
+loaded with `ctypes`. The build happens at first use, into
 `build/kernels/<hash>/` at the repository root, keyed by a hash of the
 sources and flags, so a fresh checkout builds itself and an edited source
 rebuilds. `-fmad=false` keeps the kernels' float arithmetic rounding at the
@@ -27,8 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("fast_score", "hamming", "lk_level")
+              "-fmad=false", "-Xcompiler", "-fPIC"]
+KERNELS = ("fast_score", "fast_select", "hamming", "lk_level")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -48,8 +49,11 @@ class LkLevels(ctypes.Structure):
 
 
 _SIGNATURES = {
-    # img, out, H, W, threshold, arc_length, harris_k, nms_radius, stream
-    "yavo_fast_score": [_P, _P, _I, _I, _F, _I, _F, _I, _P],
+    # img, cand_score, cand_idx, count, H, W, threshold, arc_length,
+    # harris_k, nms_radius, border, stream
+    "yavo_fast_score": [_P, _P, _P, _P, _I, _I, _F, _I, _F, _I, _I, _P],
+    # score, idx, count, K, W, uv, out_score, out_mask, stream
+    "yavo_fast_select": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     # d1, d2, out, K1, K2, n_words, stream
     "yavo_hamming": [_P, _P, _P, _I, _I, _I, _P],
     # levels, uv0, seed, valid, out_uv, out_a, out_b, out_c, out_status,
@@ -82,21 +86,36 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists."""
+    """Compile csrc/*.cu into the hashed library unless it already exists:
+    one nvcc a source, in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+               *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 

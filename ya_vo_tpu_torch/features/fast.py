@@ -1,11 +1,18 @@
 """FAST-12 corner detection with Harris ranking, NMS and top-K.
 
-Port of `ya_vo_tpu/features/fast.py`. The score map (segment test + Harris
-+ NMS) comes from `fast_cuda.fast_score_map`: the CUDA kernel for a tensor on
-the card, and for a CPU tensor its plain version, which `fast_cuda` composes
-from `fast_response`, `harris_response` and `_nms`. Every stage reads zeros
-outside the image (the JAX paths wrap with rolls instead); the two differ
-only within 8 px of the edge, which the detection border masks.
+Port of `ya_vo_tpu/features/fast.py`. `detect` is two steps of
+`fast_cuda`, each a kernel on the card and its plain version on the CPU:
+- on the card, `fast_candidates` reads the uint8 frame and writes the
+  candidates (segment test + Harris + NMS, inside the border) with their
+  count on the card, and `select_top_k` ranks them into the K keypoint
+  slots: two launches and no host sync;
+- on the CPU, the plain score map (composed from `fast_response`,
+  `harris_response` and `_nms`) lists its candidates, and a stable sort of
+  the map with -inf off the candidates gives the slots.
+Both give the same `Keypoints` in every slot, masked ones included. Every
+stage reads zeros outside the image (the JAX paths wrap with rolls instead);
+the two differ only within 8 px of the edge, which the detection border
+masks.
 """
 
 from __future__ import annotations
@@ -38,19 +45,13 @@ def detect(
     border: int = 16,
     harris_k: float = 0.04,
 ) -> Keypoints:
-    """FAST + Harris detection on a uint8 [H, W] image: score map -> border
-    mask -> top-K by score, ties broken by the lower flat index (the order
-    `lax.top_k` gives)."""
+    """FAST + Harris detection on a uint8 [H, W] image: candidates (segment
+    test, Harris, NMS, border mask) -> top-K by score, ties broken by the
+    lower flat index (the order `lax.top_k` gives)."""
     H, W = img.shape
-    smap = fast_cuda.fast_score_map(
-        img.to(torch.float32).contiguous(), threshold=float(threshold),
-        arc_length=arc_length, harris_k=harris_k, nms_radius=nms_radius)
-    keep = smap > fast_cuda.NEG / 2
-    inside = torch.zeros((H, W), dtype=torch.bool, device=img.device)
-    inside[border:H - border, border:W - border] = True
-    flat = torch.where(keep & inside, smap, -torch.inf).reshape(-1)
-    top, idx = torch.sort(flat, descending=True, stable=True)
-    top, idx = top[:max_keypoints], idx[:max_keypoints]
-    mask = torch.isfinite(top)
-    uv = torch.stack([idx % W, idx // W], dim=-1).to(torch.float32)
-    return Keypoints(uv=uv, score=torch.where(mask, top, 0.0), mask=mask)
+    cand = fast_cuda.fast_candidates(
+        img.contiguous(), threshold=float(threshold), arc_length=arc_length,
+        harris_k=harris_k, nms_radius=nms_radius, border=border)
+    uv, score, mask = fast_cuda.select_top_k(*cand, H=H, W=W,
+                                             k=max_keypoints)
+    return Keypoints(uv=uv, score=score, mask=mask)

@@ -7,6 +7,7 @@ Runs `chip_smoke.py`'s workload (the 40-frame 376x1241 stamps world at
 VOConfig() with window BA off): frames 0-11 warm the path, frames 12-39 run
 under `torch.profiler`. Device busy time is the union of the intervals of
 the profiler's device events (kernels and copies), each counted once.
+Also prints the hand-written kernels' launches a frame (`_build.LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ya_vo_tpu_torch import create_frontend
+from ya_vo_tpu_torch import _build, create_frontend
 from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.utils import synthetic
 
@@ -52,6 +53,7 @@ def main() -> None:
     fe = create_frontend(cfg, cam, device="cuda")
     fe.run(frames[:WARM])
     torch.cuda.synchronize()
+    _build.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -67,6 +69,8 @@ def main() -> None:
           f"busy (union) {union:.1f} ms ({union / n:.2f} ms/frame); "
           f"idle share {1 - union / wall_ms:.4f}; "
           f"cudaLaunchKernel {launches / n:.0f} a frame")
+    print("hand-written kernel launches a frame: " + ", ".join(
+        f"{k} {v / n:.2f}" for k, v in _build.LAUNCHES.items()))
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
     if args.trace:

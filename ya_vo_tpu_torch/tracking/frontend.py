@@ -77,6 +77,15 @@ def _check_supported(config: VOConfig) -> None:
         raise NotImplementedError(f"photometric_norm=True is {_NOT_YET}")
 
 
+def detect_kwargs(fc) -> dict:
+    """`fast.detect`'s parameters from a `FeatureConfig`; the border keeps
+    the blurred BRIEF patch inside the image."""
+    return dict(max_keypoints=fc.max_keypoints, threshold=fc.fast_threshold,
+                arc_length=fc.fast_arc_length, nms_radius=fc.nms_radius,
+                border=fc.brief_patch_radius + fc.blur_ksize // 2 + 4,
+                harris_k=fc.harris_k)
+
+
 class Frontend:
     def __init__(self, config: VOConfig, cam: Camera, device=None):
         _check_supported(config)
@@ -156,11 +165,7 @@ class Frontend:
 
     def _extract(self, img: torch.Tensor):
         fc = self.cfg.features
-        kp = fast.detect(
-            img, max_keypoints=fc.max_keypoints, threshold=fc.fast_threshold,
-            arc_length=fc.fast_arc_length, nms_radius=fc.nms_radius,
-            border=fc.brief_patch_radius + fc.blur_ksize // 2 + 4,
-            harris_k=fc.harris_k)
+        kp = fast.detect(img, **detect_kwargs(fc))
         blurred = brief.gaussian_blur(img.to(torch.float32), fc.blur_ksize,
                                       fc.blur_sigma)
         desc, _ = brief.describe(blurred, kp.uv, kp.mask, self._offsets)
