@@ -15,7 +15,6 @@ slots); every other stage of the JAX frontend runs unchanged. The port's bootstr
 handed the JAX RANSAC draw, since torch cannot reproduce `jax.random`
 bits."""
 
-import copy
 import dataclasses
 import os
 import subprocess
@@ -65,7 +64,7 @@ def _snapshot(jfe):
         arrays[k] = tuple(np.array(x) for x in v) if k.endswith("_kp") \
             else np.array(v)
     arrays["status"] = jfe.status.name
-    arrays["map"] = copy.deepcopy(jfe.map)
+    arrays["map"] = convert.map_arrays(jfe.map)
     return arrays
 
 
@@ -114,11 +113,12 @@ def _port_from_snapshot(jfe, snap):
 
 
 def _inject_jax_draw(monkeypatch, seed):
-    """Make the port's bootstrap sample the hypotheses the JAX frontend's
-    first bootstrap samples (its first key split)."""
-    key = jax.random.split(jax.random.PRNGKey(seed))[1]
+    """Make each port bootstrap sample the hypotheses of the JAX
+    frontend's bootstrap of the same rank (its successive key splits)."""
+    state = {"rng": jax.random.PRNGKey(seed)}
 
     def sample_indices(generator, n_hyp, sample_size, mask):
+        state["rng"], key = jax.random.split(state["rng"])
         idx = jransac._sample_indices(key, n_hyp, sample_size,
                                       jnp.asarray(mask.cpu().numpy()))
         return torch.as_tensor(np.array(idx), dtype=torch.int64)
@@ -215,10 +215,14 @@ def test_steady_state_matches_jax(reference):
 def test_one_fused_step_from_jax_state(reference):
     """Load the JAX state after frame 5 and run frame 6 on both: the same
     keyframe decision and keypoints, gate counts within 2%, the pose within
-    1e-4, and the host map replay in step."""
+    1e-4, and the host map replay in step. The map arrives as arrays and
+    becomes the port's own MapStore, equal to the JAX one."""
     imgs, _, jfe, snaps, _ = reference
     map_store = snaps[5]["map"]
     fe = _port_from_snapshot(jfe, snaps[5])
+    assert type(fe.map).__module__ == "ya_vo_tpu_torch.worldmap.mapstore"
+    for k, v in convert.map_arrays(fe.map).items():
+        np.testing.assert_array_equal(v, map_store[k], err_msg=k)
     res = fe.process(imgs[6])
     ref = jfe.results[6]
     assert res.status == ref.status == "TRACKING"
@@ -229,15 +233,22 @@ def test_one_fused_step_from_jax_state(reference):
         <= 0.02 * ref.n_ba_inliers
     assert res.n_keypoints == ref.n_keypoints
     np.testing.assert_allclose(res.pose_wc, ref.pose_wc, atol=1e-4)
-    assert fe.map.n_keyframes == map_store.n_keyframes + int(res.is_keyframe)
-    assert fe.map.n_landmarks >= map_store.n_landmarks
+    assert fe.map.n_keyframes == \
+        map_store["n_keyframes"] + int(res.is_keyframe)
+    assert fe.map.n_landmarks >= map_store["n_landmarks"]
 
 
-def test_unsupported_configs_raise():
+def test_unsupported_configs_raise(monkeypatch):
+    """VOConfig() builds (sync window BA, push apply, one device); the
+    options outside the port raise, each naming its ROADMAP item."""
     cam = tsynthetic.kitti_camera()
     base = make_config()
-    with pytest.raises(NotImplementedError, match="window BA"):
-        create_frontend(VOConfig(), cam, device="cpu")
+    create_frontend(VOConfig(), cam, device="cpu")
+    ba = VOConfig().ba
+    for field, value in (("asynchronous", True), ("apply_mode", "device")):
+        with pytest.raises(NotImplementedError, match=field):
+            create_frontend(VOConfig(ba=dataclasses.replace(
+                ba, **{field: value})), cam, device="cpu")
     with pytest.raises(NotImplementedError, match="lk_template"):
         create_frontend(dataclasses.replace(base, tracking=dataclasses.replace(
             base.tracking, lk_template="anchor")), cam, device="cpu")
@@ -247,15 +258,26 @@ def test_unsupported_configs_raise():
     with pytest.raises(ValueError, match="monocular"):
         create_frontend(dataclasses.replace(base, camera_type="stereo"), cam,
                         device="cpu")
+    # more than one visible card: the landmark-sharded solver is not ported
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="distributed"):
+        create_frontend(VOConfig(), cam, device="cpu")
+    create_frontend(VOConfig(ba=dataclasses.replace(ba, distributed="off")),
+                    cam, device="cpu")
 
 
-def test_tracking_failure_raises_instead_of_resetting():
+def test_tracking_failure_resets():
+    """A blank frame fails the tracking gates and resets: relocalization
+    against the map fails on it, and so does the two-view fallback, so the
+    frontend waits in INIT with its pose held."""
     imgs, *_, cam = tsynthetic.render_sequence(**dict(SEQ, n_frames=3))
     fe = create_frontend(make_config(), cam, device="cpu")
     fe.run(imgs[:2])
-    blank = np.full_like(imgs[2], 25)
-    with pytest.raises(NotImplementedError, match="reset"):
-        fe.process(blank)
+    res = fe.process(np.full_like(imgs[2], 25))
+    assert res.status == "RESET" and res.reset
+    assert fe.n_resets == 1 and fe.n_relocalizations == 0
+    assert fe.status is tfrontend.VOStatus.INIT
+    np.testing.assert_array_equal(res.pose_wc, fe.trajectory[1])
 
 
 def test_tf32_off():
@@ -267,25 +289,25 @@ def test_tf32_off():
 
 
 def test_port_runs_without_jax():
-    """Every module of the port and chip_smoke.py imported, and three
-    frames run, in a fresh interpreter: no JAX and nothing of the JAX
-    package is loaded."""
+    """Every module of the port (window BA included) and chip_smoke.py
+    imported, and VOConfig() unmodified run for four frames, in a fresh
+    interpreter: no JAX and nothing of the JAX package is loaded."""
     code = (
-        "import sys, dataclasses, importlib, pkgutil\n"
+        "import sys, importlib, pkgutil\n"
         "import chip_smoke, ya_vo_tpu_torch\n"
+        "import ya_vo_tpu_torch.ba.window\n"
         "for m in pkgutil.walk_packages(ya_vo_tpu_torch.__path__,\n"
         "                               'ya_vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from ya_vo_tpu_torch import create_frontend\n"
         "from ya_vo_tpu_torch.config import VOConfig\n"
         "from ya_vo_tpu_torch.utils import synthetic\n"
-        "imgs, _, _, cam = synthetic.render_sequence(n_frames=3, "
+        "imgs, _, _, cam = synthetic.render_sequence(n_frames=4, "
         "n_landmarks=500, height=256, width=768, step=0.4, seed=7)\n"
-        "cfg = VOConfig()\n"
-        "cfg = dataclasses.replace(\n"
-        "    cfg, ba=dataclasses.replace(cfg.ba, enabled=False),\n"
-        "    tracking=dataclasses.replace(cfg.tracking, min_ba_inliers=15))\n"
-        "create_frontend(cfg, cam, device='cpu').run(imgs)\n"
+        "fe = create_frontend(VOConfig(), cam, device='cpu')\n"
+        "assert fe.cfg.ba.enabled\n"
+        "fe.run(imgs)\n"
+        "assert len(fe.results) == 4\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ya_vo_tpu') "
         "or m.startswith(('jax.', 'jaxlib', 'ya_vo_tpu.')))\n"
         "assert not bad, bad\n"

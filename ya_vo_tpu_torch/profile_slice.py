@@ -1,13 +1,16 @@
 """Profile the port's main path on one CUDA card: wall time, device busy
 time, idle share, launches and the ops that take the device time.
 
-    python -m ya_vo_tpu_torch.profile_slice [--trace PATH]
+    python -m ya_vo_tpu_torch.profile_slice [--production] [--trace PATH]
 
 Runs `chip_smoke.py`'s workload (the 40-frame 376x1241 stamps world at
-VOConfig() with window BA off): frames 0-11 warm the path, frames 12-39 run
-under `torch.profiler`. Device busy time is the union of the intervals of
-the profiler's device events (kernels and copies), each counted once.
-Also prints the hand-written kernels' launches a frame (`_build.LAUNCHES`).
+VOConfig() with window BA off, or with `--production` VOConfig()
+unmodified: sync window BA and the redo of in-flight frames): frames 0-11
+warm the path, frames 12-39 run under `torch.profiler`. Device busy time
+is the union of the intervals of the profiler's device events (kernels and
+copies), each counted once. Also prints the hand-written kernels' launches
+a frame (`_build.LAUNCHES`), and the window solves and redone dispatches
+in the profiled window.
 """
 
 from __future__ import annotations
@@ -45,15 +48,19 @@ def busy_us(events) -> tuple:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", help="write a Chrome trace here")
+    ap.add_argument("--production", action="store_true",
+                    help="VOConfig() unmodified (window BA on)")
     args = ap.parse_args()
     frames, _, _, cam = synthetic.render_sequence(**SEQ)
     cfg = VOConfig()
-    cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba,
-                                                          enabled=False))
+    if not args.production:
+        cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba,
+                                                              enabled=False))
     fe = create_frontend(cfg, cam, device="cuda")
     fe.run(frames[:WARM])
     torch.cuda.synchronize()
     _build.reset_launches()
+    solves, redone = fe.n_ba_runs, fe.n_redone
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -71,6 +78,8 @@ def main() -> None:
           f"cudaLaunchKernel {launches / n:.0f} a frame")
     print("hand-written kernel launches a frame: " + ", ".join(
         f"{k} {v / n:.2f}" for k, v in _build.LAUNCHES.items()))
+    print(f"window BA solves {fe.n_ba_runs - solves}, redone dispatches "
+          f"{fe.n_redone - redone}, resets {fe.n_resets} in the window")
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
     if args.trace:
