@@ -34,10 +34,7 @@ import dataclasses, sys, time
 import torch
 import chip_smoke as cs
 from ya_vo_tpu_torch import create_frontend
-try:
-    from ya_vo_tpu_torch.config import VOConfig
-except ImportError:       # a checkout before the port had its own config
-    from ya_vo_tpu.config import VOConfig
+from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.utils import synthetic
 frames, *_, cam = synthetic.render_sequence(**cs.SEQ)
 cfg = VOConfig()

@@ -4,13 +4,30 @@ like-for-like reference for the port's main-path numbers.
 
     JAX_PLATFORMS=cpu python3 port_jax_reference.py [--runs RUN,...]
 
-Runs `ya_vo_tpu.tracking.frontend.Frontend.run(pipelined=True)` over the
-40-frame 376x1241 stamps world (`chip_smoke.SEQ`), RUN being one of
-(all three by default):
-  ba_off   - VOConfig() with only window BA off (chip_smoke.py phase 4);
-  ba_on    - VOConfig() unmodified (phase 5);
+Runs `ya_vo_tpu.tracking.frontend.Frontend.run(pipelined=True)`, RUN being
+one of (the first four by default):
+  ba_off   - the 40-frame 376x1241 stamps world (`chip_smoke.SEQ`) at
+             VOConfig() with only window BA off (chip_smoke.py phase 4);
+  ba_on    - the same frames at VOConfig() unmodified (phase 5);
   blackout - VOConfig() unmodified, two black frames after frame 20
-             (phase 6).
+             (phase 6);
+  textured - VOConfig() unmodified over the first `chip_smoke.TEXTURED_N`
+             frames of bench.py's textured world
+             (`TexturedSequence(n_frames=410, seed=5)`), rendered by the
+             JAX package with its own sensor noise (phase 8; the card
+             renders its own noise, so the two compare in size only);
+  refine   - the offline refine on a whole session of that world:
+             VOConfig() over its first `--refine-frames` frames (410, the
+             bench's) at tests/test_torch_textured.py's size (188x620, the
+             camera halved, 1024 keypoints, synchronous BA; atlas
+             `--refine-tex`), then the JAX package's `global_refine` and
+             the port's (on the CPU, from the same map carried over by
+             `utils/convert`); ATE_sim3 raw and refined by each, and the
+             two refined trajectories' largest difference. Each window
+             solve of the JAX refine is also solved by the port's
+             `solve_window` in float32 and in float64 on the same problem:
+             the three windows whose port and JAX poses differ most, each
+             with both solves' distance to the float64 one.
 On the CPU the JAX frontend would track with `lk.track`; the TPU and the
 port run `lk_pallas` semantics, which differ from it near the image edge
 (ROADMAP.md Queue 3). So, as in tests/test_torch_frontend.py, LK is swapped
@@ -19,10 +36,11 @@ plain LK; every other stage of the JAX frontend runs unchanged. The JAX
 process sees one CPU device, so `ba.distributed="auto"` is the
 single-device solver, as on one card.
 
-Prints one JSON line a run: ATE_sim3 (over the non-black frames for
-blackout), resets, relocalizations, keyframes, BA solves and discards, the
-statuses, and the blackout's scale ratio (median step-length ratio after
-over before, the property of tests/test_relocalization.py).
+Prints one JSON line a run (refine: its own keys): ATE_sim3 (over the
+non-black frames for blackout), resets, relocalizations, keyframes, BA
+solves and discards, the statuses, and the blackout's scale ratio (median
+step-length ratio after over before, the property of
+tests/test_relocalization.py).
 Imports JAX: it runs where the JAX package runs, never on the card.
 """
 
@@ -44,6 +62,7 @@ from ya_vo_tpu.config import VOConfig
 from ya_vo_tpu.tracking import lk as jlk
 from ya_vo_tpu.tracking.frontend import Frontend
 from ya_vo_tpu.utils import synthetic
+from ya_vo_tpu.utils.scene import TexturedSequence
 from ya_vo_tpu.viz import evaluation
 from ya_vo_tpu_torch.tracking import lk_cuda
 
@@ -89,13 +108,98 @@ def run(name: str, frames, poses_gt, cam) -> dict:
     return out
 
 
+def textured():
+    """Phase 8's frames, rendered by the JAX package: (frames, poses, cam)."""
+    seq = TexturedSequence(**chip_smoke.TEXTURED)
+    n = chip_smoke.TEXTURED_N
+    return ([np.array(seq.frame(f)) for f in range(n)], seq.poses[:n],
+            seq.cam)
+
+
+def refine(n_frames: int, tex_size: int) -> dict:
+    """The `refine` run (module docstring)."""
+    from tests.test_torch_textured import H, SCALE, W, make_config
+    from ya_vo_tpu.ba import window as jwindow
+    from ya_vo_tpu.ba.global_refine import global_refine as jglobal_refine
+    from ya_vo_tpu.core.camera import Camera
+    from ya_vo_tpu_torch.ba import window as pwindow
+    from ya_vo_tpu_torch.ba.global_refine import global_refine
+    from ya_vo_tpu_torch.tracking.frontend import Frontend as PortFrontend
+    from ya_vo_tpu_torch.utils import convert
+
+    cam = Camera.create(718.856 * SCALE, 718.856 * SCALE, 607.1928 * SCALE,
+                        185.2157 * SCALE)
+    pcam = convert.camera_from_numpy(cam)
+    seq = TexturedSequence(**dict(chip_smoke.TEXTURED, height=H, width=W,
+                                  cam=cam, tex_size=tex_size))
+    fe = Frontend(make_config(), cam)
+    t0 = time.perf_counter()
+    traj = fe.run([np.array(seq.frame(f)) for f in range(n_frames)],
+                  pipelined=True)
+    seconds = time.perf_counter() - t0
+    before = convert.map_arrays(fe.map)
+    jax_solve, windows = jwindow.solve_window, []
+
+    def lockstep(prob, cam_, **kw):
+        res = jax_solve(prob, cam_, **kw)
+        p32 = pwindow.BAProblem(*(torch.as_tensor(np.array(x)) for x in prob))
+        p32 = p32._replace(obs_lm=p32.obs_lm.long())
+        p64 = pwindow.BAProblem(*(x.double() if x.is_floating_point() else x
+                                  for x in p32))
+        n = int(p32.pose_valid.sum())
+        j = np.asarray(res.poses)[:n]
+        t32 = pwindow.solve_window(p32, pcam, **kw).poses[:n].numpy()
+        t64 = pwindow.solve_window(p64, pcam, **kw).poses[:n].numpy()
+        windows.append(dict(window=len(windows),
+                            port_vs_jax=float(np.abs(t32 - j).max()),
+                            jax_vs_f64=float(np.abs(j - t64).max()),
+                            port_vs_f64=float(np.abs(t32 - t64).max())))
+        return res
+
+    jwindow.solve_window = lockstep
+    try:
+        refined = jglobal_refine(fe)
+    finally:
+        jwindow.solve_window = jax_solve
+    port = PortFrontend(make_config(), pcam, device="cpu")
+    port.map = convert.mapstore_from_numpy(before)
+    port.trajectory = list(traj)
+    port_refined = global_refine(port)
+    gt_cw = np.linalg.inv(seq.poses[:n_frames])
+
+    def ate(t):
+        return evaluation.ate_rmse(t, gt_cw, with_scale=True)
+
+    worst = sorted(windows, key=lambda w: -w["port_vs_jax"])[:3]
+    return dict(run="refine", frames=n_frames, size=[H, W], tex=tex_size,
+                seconds=seconds, resets=fe.n_resets,
+                relocalizations=fe.n_relocalizations,
+                ba_solves=fe.n_ba_runs, ba_discarded=fe.n_ba_discarded,
+                keyframes=int(before["n_keyframes"]),
+                window_barrier=int(before["window_barrier"]),
+                archive=len(before["archive_stamps"]),
+                ate_sim3=ate(traj), ate_refined_jax=ate(refined),
+                ate_refined_port=ate(port_refined),
+                refined_max_diff=float(np.abs(port_refined - refined).max()),
+                windows=len(windows), worst_windows=worst)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--runs", default="ba_off,ba_on,blackout")
+    ap.add_argument("--runs", default="ba_off,ba_on,blackout,textured")
+    ap.add_argument("--refine-frames", type=int,
+                    default=chip_smoke.TEXTURED["n_frames"])
+    ap.add_argument("--refine-tex", type=int, default=1024)
     args = ap.parse_args()
-    frames, poses_gt, _, cam = synthetic.render_sequence(**chip_smoke.SEQ)
+    stamps = synthetic.render_sequence(**chip_smoke.SEQ)
     jlk.auto_track = tpu_semantics_lk
     for name in args.runs.split(","):
+        if name == "refine":
+            print(json.dumps(refine(args.refine_frames, args.refine_tex)),
+                  flush=True)
+            continue
+        frames, poses_gt, *_, cam = textured() if name == "textured" \
+            else stamps
         print(json.dumps(run(name, frames, poses_gt, cam)), flush=True)
 
 

@@ -289,13 +289,17 @@ def test_tf32_off():
 
 
 def test_port_runs_without_jax():
-    """Every module of the port (window BA included) and chip_smoke.py
-    imported, and VOConfig() unmodified run for four frames, in a fresh
-    interpreter: no JAX and nothing of the JAX package is loaded."""
+    """Every module of the port (window BA, the textured renderer, offline
+    refinement, the selfcheck and the bench included) and chip_smoke.py
+    imported, VOConfig() unmodified run for four frames and refined
+    offline, and a textured frame rendered, in a fresh interpreter: no JAX
+    and nothing of the JAX package is loaded."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import chip_smoke, ya_vo_tpu_torch\n"
-        "import ya_vo_tpu_torch.ba.window\n"
+        "import ya_vo_tpu_torch.ba.window, ya_vo_tpu_torch.ba.global_refine\n"
+        "import ya_vo_tpu_torch.utils.scene, ya_vo_tpu_torch.selfcheck\n"
+        "import ya_vo_tpu_torch.bench\n"
         "for m in pkgutil.walk_packages(ya_vo_tpu_torch.__path__,\n"
         "                               'ya_vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -308,6 +312,12 @@ def test_port_runs_without_jax():
         "assert fe.cfg.ba.enabled\n"
         "fe.run(imgs)\n"
         "assert len(fe.results) == 4\n"
+        "from ya_vo_tpu_torch.ba.global_refine import global_refine\n"
+        "assert global_refine(fe).shape == (4, 4, 4)\n"
+        "from ya_vo_tpu_torch.utils.scene import TexturedSequence\n"
+        "seq = TexturedSequence(n_frames=2, height=32, width=96, "
+        "tex_size=64, mip_levels=2, device='cpu')\n"
+        "assert seq.frame(1).shape == (32, 96)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ya_vo_tpu') "
         "or m.startswith(('jax.', 'jaxlib', 'ya_vo_tpu.')))\n"
         "assert not bad, bad\n"

@@ -142,3 +142,21 @@ def test_ransac_own_draw_recovers_motion(two_view):
     t_gt = poses[1][:3, 3] / np.linalg.norm(poses[1][:3, 3])
     assert float(out.t.numpy() @ t_gt) > 0.99
     np.testing.assert_allclose(out.R.numpy(), poses[1][:3, :3], atol=2e-3)
+
+
+def test_eight_point_null_vector_precision(two_view, monkeypatch):
+    """The 8-point null vector on the CPU is LAPACK's float32 eigh of the
+    float32 AᵀA, the JAX package's solver there (the card's float64 solve
+    is held in tests/test_torch_kernels.py)."""
+    uv1, uv2, mask, *_ = two_view
+    seen = []
+    eigh = torch.linalg.eigh
+
+    def spy(M):
+        seen.append(M)
+        return eigh(M)
+
+    monkeypatch.setattr(torch.linalg, "eigh", spy)
+    F = tepi.eight_point(_t(uv1), _t(uv2), _t(mask))
+    assert F.dtype == torch.float32
+    assert [M.dtype for M in seen] == [torch.float32]

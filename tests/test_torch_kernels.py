@@ -5,21 +5,28 @@ no JAX, which tests/conftest.py imports, so run them there with
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-from the repository root (the LK check and its tolerances are
-chip_smoke.py's). This file imports no JAX. The CPU-side contract of the
-wrappers (a CPU tensor takes the plain version and launches nothing) is
-checked here too.
+from the repository root (the kernel checks and their tolerances are
+`ya_vo_tpu_torch/selfcheck.py`'s). This file imports no JAX. Also here: the
+card's float64 8-point null vector (geometry/epipolar.py), alone and in the
+textured world's bootstrap against a float64 solve on the CPU, and the
+CPU-side contract of the wrappers (a CPU tensor takes the plain version and
+launches nothing).
 """
+
+import json
 
 import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-from ya_vo_tpu_torch import _build
-from ya_vo_tpu_torch.features import fast, fast_cuda, hamming_cuda
+from ya_vo_tpu_torch import _build, create_frontend
+from ya_vo_tpu_torch import selfcheck as sc
+from ya_vo_tpu_torch.config import VOConfig
+from ya_vo_tpu_torch.features import fast, fast_cuda, hamming_cuda, matching
+from ya_vo_tpu_torch.geometry import epipolar, ransac
 from ya_vo_tpu_torch.tracking import lk_cuda
 from ya_vo_tpu_torch.utils import synthetic
+from ya_vo_tpu_torch.utils.scene import TexturedSequence
 
 
 @pytest.fixture
@@ -43,7 +50,8 @@ FAST = dict(threshold=20.0, arc_length=12, harris_k=0.04, nms_radius=3)
 @pytest.fixture(scope="module")
 def big():
     """A 376x1241 frame of the main path's sequence, and uniform noise."""
-    imgs, *_ = synthetic.render_sequence(**{**chip_smoke.SEQ, "n_frames": 1})
+    imgs, *_ = synthetic.render_sequence(**{**synthetic.STAMPS,
+                                               "n_frames": 1})
     noise = np.random.default_rng(5).integers(0, 256, (256, 512), np.uint8)
     return torch.as_tensor(imgs[0]), torch.as_tensor(noise)
 
@@ -170,23 +178,23 @@ def test_hamming_kernel_exact(cuda):
 
 @pytest.mark.cuda
 def test_lk_kernel_matches_plain(cuda, frames):
-    """chip_smoke's check at a smaller size on FAST corners with seeds
+    """selfcheck's K1 check at a smaller size on FAST corners with seeds
     moved by up to a few px, border clamps and dead slots among them: the
     kernel with a one-level table, level by level on identical inputs,
     positions within LK_UV_TOL px and eig, res and std within LK_ATOL +
     LK_RTOL |plain|, dead slots equal; then the whole tracker in one launch,
     status equal keypoint by keypoint (LK_FLIPS and LK_TRACK_FRAC as
-    chip_smoke.py states them)."""
+    selfcheck.py states them)."""
     kp = fast.detect(frames[0], max_keypoints=256)
     rng = np.random.default_rng(0)
     seed = kp.uv + torch.as_tensor(rng.normal(0, 1.0, size=(256, 2)),
                                    dtype=torch.float32)
     mask = kp.mask & torch.as_tensor(rng.random(256) > 0.1)
-    cases = chip_smoke.lk_edge_cases(kp.uv, seed, mask, 192, 640)
-    per_level, _, tracker = chip_smoke.compare_lk(
+    cases = sc.lk_edge_cases(kp.uv, seed, mask, 192, 640)
+    per_level, _, tracker = sc.compare_lk(
         *(t.to(cuda) for t in (frames[0].float(), frames[1].float(),
                                *cases)))
-    assert not chip_smoke.lk_problems(per_level, tracker)
+    assert not sc.lk_problems(per_level, tracker)
     assert tracker["status_plain"] > 100
 
 
@@ -237,6 +245,115 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
     with pytest.raises(ValueError, match="1 to 4 levels"):
         lk_cuda.track_pyramids(pyr, pyr, uv, uv,
                                torch.ones(4, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.cuda
+def test_eight_point_null_vector_in_float64_on_the_card(cuda, monkeypatch):
+    """On the card the 8-point null vector is solved in float64 (the
+    card's float32 eigh bent the textured world's bootstrap; see
+    geometry/epipolar.py); F comes back float32, unit norm and rank 2."""
+    rng = np.random.default_rng(0)
+    uv1 = torch.as_tensor(rng.uniform(0, 1241, (4, 300, 2)),
+                          dtype=torch.float32)
+    uv2 = uv1 + torch.as_tensor(rng.normal(0, 2, (4, 300, 2)),
+                                dtype=torch.float32)
+    mask = torch.ones((4, 300), dtype=torch.bool)
+    seen = []
+    eigh = torch.linalg.eigh
+
+    def spy(M):
+        seen.append(M.dtype)
+        return eigh(M)
+
+    monkeypatch.setattr(torch.linalg, "eigh", spy)
+    F = epipolar.eight_point(uv1.to(cuda), uv2.to(cuda), mask.to(cuda))
+    assert seen == [torch.float64] and F.dtype == torch.float32
+    F = F.cpu().double()
+    assert torch.allclose(F.flatten(1).norm(dim=1),
+                          torch.ones(4, dtype=torch.float64))
+    assert torch.linalg.det(F).abs().max() < 1e-6
+
+
+# The bootstrap of bench.py's textured world on the card against the same
+# two-view problem solved in float64 on the CPU. With the card's float32
+# eigh for the 8-point null vector the bootstrap translation sat 0.030 from
+# the float64 solve, with LAPACK's float32 on the CPU 0.00056
+# (geometry/epipolar.py): BOOT_TOL lies between the two, and holds R and t
+# entry by entry and the refit F (unit norm, up to sign).
+BOOT_TOL = 5e-3
+
+
+def _f_err(a, b):
+    """Largest entry difference of F [..., 3, 3] up to sign."""
+    d = (a - b).abs().amax((-2, -1))
+    return torch.minimum(d, (a + b).abs().amax((-2, -1)))
+
+
+def _bootstrap(uv1, uv2, mask, K, idx, device, dtype):
+    rc = VOConfig().ransac
+    return ransac.estimate_two_view(
+        uv1.to(device, dtype), uv2.to(device, dtype), mask.to(device),
+        K.to(device, dtype), sample_idx=idx.to(device),
+        n_hypotheses=rc.n_hypotheses, sample_size=rc.sample_size,
+        inlier_threshold_px=rc.inlier_threshold_px)
+
+
+def _boot_errors(uv1, uv2, mask, K, idx, ref, device) -> dict:
+    """The bootstrap in float32 on `device` (the frontend's path) and its
+    refit F on the reference's inliers, against the float64 solve `ref`."""
+    got = _bootstrap(uv1, uv2, mask, K, idx, device, torch.float32)
+    uv1, uv2, idx = uv1.to(device), uv2.to(device), idx.to(device)
+    F = epipolar.eight_point(uv1, uv2, ref.inlier_mask.to(device))
+    F_ref = epipolar.eight_point(uv1.cpu().double(), uv2.cpu().double(),
+                                 ref.inlier_mask)
+    ones = torch.ones(idx.shape, dtype=torch.bool)
+    F_hyp = epipolar.eight_point(uv1[idx], uv2[idx], ones.to(device))
+    F_hyp_ref = epipolar.eight_point(uv1.cpu().double()[idx.cpu()],
+                                     uv2.cpu().double()[idx.cpu()], ones)
+    hyp = _f_err(F_hyp.cpu().double(), F_hyp_ref)
+    return dict(
+        R=float((got.R.cpu().double() - ref.R).abs().max()),
+        t=float((got.t.cpu().double() - ref.t).abs().max()),
+        F_refit=float(_f_err(F.cpu().double(), F_ref)),
+        F_hyp_median=float(hyp.median()), F_hyp_max=float(hyp.max()),
+        n_inliers=int(got.n_inliers), n_inliers_ref=int(ref.n_inliers),
+        inliers_differ=int((got.inlier_mask.cpu()
+                            != ref.inlier_mask).sum()))
+
+
+@pytest.mark.cuda
+def test_bootstrap_on_the_card_agrees_with_a_float64_solve(cuda,
+                                                           monkeypatch):
+    """Frames 0 and 1 of `TexturedSequence(n_frames=410, seed=5)` rendered
+    on the card at 376x1241, extracted and matched as the frontend's
+    bootstrap does, with its first RANSAC draw: R, t and the refit F
+    within BOOT_TOL of a float64 solve on the CPU from the same matches
+    and draw. Prints the errors, and as readings only (not held) those
+    of the CPU's float32 path (LAPACK's eigh) and of the card's float32
+    eigh in place of the float64 null vector."""
+    seq = TexturedSequence(n_frames=410, seed=5, device=cuda)
+    cfg = VOConfig()
+    fe = create_frontend(cfg, seq.cam, device=cuda)
+    kp0, d0 = fe._extract(seq.frame(0))
+    kp1, d1 = fe._extract(seq.frame(1))
+    m = matching.match(d0, d1, kp0.mask, kp1.mask,
+                       abs_threshold=cfg.matching.abs_threshold,
+                       cross_check=cfg.matching.cross_check)
+    uv1, uv2, K = kp0.uv, kp1.uv[m.idx2], fe.K
+    rc = cfg.ransac
+    idx = ransac.sample_indices(torch.Generator().manual_seed(rc.seed),
+                                rc.n_hypotheses, rc.sample_size, m.mask)
+    ref = _bootstrap(uv1, uv2, m.mask, K, idx, "cpu", torch.float64)
+    err = _boot_errors(uv1, uv2, m.mask, K, idx, ref, cuda)
+    err_cpu = _boot_errors(uv1, uv2, m.mask, K, idx, ref,
+                           torch.device("cpu"))
+    monkeypatch.setattr(epipolar, "_null_vector",
+                        lambda M: torch.linalg.eigh(M)[1][..., :, 0])
+    err_f32 = _boot_errors(uv1, uv2, m.mask, K, idx, ref, cuda)
+    print("bootstrap vs float64: " + json.dumps(dict(
+        n_matches=int(m.count()), card=err, cpu_float32=err_cpu,
+        card_float32_eigh=err_f32)))
+    assert max(err["R"], err["t"], err["F_refit"]) <= BOOT_TOL, err
 
 
 def test_cpu_tensors_take_the_plain_versions(frames):

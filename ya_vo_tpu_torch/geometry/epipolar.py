@@ -3,6 +3,15 @@ its decomposition. Port of `ya_vo_tpu/geometry/epipolar.py`, batched over
 leading axes, float32. Eigenvector and SVD signs may differ from the JAX
 module's: F is defined up to sign, and the four (R, t) candidates are the
 same set.
+
+The null vector of the 8-point system's float32 AᵀA comes from LAPACK's
+float32 eigh on the CPU, the solver the JAX package runs there (the CPU
+tests hold the bootstrap to JAX's). On the card, float32 eigh is
+cuSOLVER's, and RANSAC's choice of hypothesis and its refit follow every
+rounding of it: on the textured world's first frame pair its bootstrap
+translation sat 0.03 from a float64 solve (LAPACK float32: 0.0006), a bent
+initial map that tracking never recovered from (13 resets in 410 frames).
+So the card solves the null vector in float64.
 """
 
 from __future__ import annotations
@@ -38,6 +47,14 @@ def normalize_points(pts: torch.Tensor, mask: torch.Tensor):
     return pts_norm, T
 
 
+def _null_vector(M: torch.Tensor) -> torch.Tensor:
+    """Eigenvector of the smallest eigenvalue of symmetric M [..., n, n]:
+    float32 LAPACK on the CPU, float64 on the card (module docstring)."""
+    if M.is_cuda:
+        return torch.linalg.eigh(M.double())[1][..., :, 0].to(M.dtype)
+    return torch.linalg.eigh(M)[1][..., :, 0]
+
+
 def eight_point(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor):
     """Normalized 8-point F [..., 3, 3]: rank 2, denormalized, unit norm."""
     p1n, T1 = normalize_points(pts1, mask)
@@ -48,7 +65,7 @@ def eight_point(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor):
                      torch.ones_like(x1)], dim=-1)
     A = A * mask[..., None].to(A.dtype)
     AtA = torch.einsum("...ni,...nj->...ij", A, A)
-    f = torch.linalg.eigh(AtA)[1][..., :, 0]
+    f = _null_vector(AtA)
     Fm = f.reshape(f.shape[:-1] + (3, 3))
     U, S, Vh = torch.linalg.svd(Fm)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)

@@ -1,12 +1,15 @@
 """Profile the port's main path on one CUDA card: wall time, device busy
 time, idle share, launches and the ops that take the device time.
 
-    python -m ya_vo_tpu_torch.profile_slice [--production] [--trace PATH]
+    python -m ya_vo_tpu_torch.profile_slice [--production | --textured]
+                                            [--trace PATH]
 
 Runs `chip_smoke.py`'s workload (the 40-frame 376x1241 stamps world at
 VOConfig() with window BA off, or with `--production` VOConfig()
-unmodified: sync window BA and the redo of in-flight frames): frames 0-11
-warm the path, frames 12-39 run under `torch.profiler`. Device busy time
+unmodified: sync window BA and the redo of in-flight frames; or with
+`--textured` VOConfig() unmodified over the first 40 frames of bench.py's
+textured world, rendered on the card inside the run): frames 0-11 warm
+the path, frames 12-39 run under `torch.profiler`. Device busy time
 is the union of the intervals of the profiler's device events (kernels and
 copies), each counted once. Also prints the hand-written kernels' launches
 a frame (`_build.LAUNCHES`), and the window solves and redone dispatches
@@ -26,9 +29,8 @@ from torch.profiler import ProfilerActivity, profile
 from ya_vo_tpu_torch import _build, create_frontend
 from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.utils import synthetic
+from ya_vo_tpu_torch.utils.scene import TexturedSequence
 
-SEQ = dict(n_frames=40, n_landmarks=1200, height=376, width=1241, step=0.5,
-           yaw_rate=0.002, seed=11, corridor=True)
 WARM = 12
 
 
@@ -48,26 +50,36 @@ def busy_us(events) -> tuple:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", help="write a Chrome trace here")
-    ap.add_argument("--production", action="store_true",
-                    help="VOConfig() unmodified (window BA on)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--production", action="store_true",
+                      help="VOConfig() unmodified (window BA on)")
+    mode.add_argument("--textured", action="store_true",
+                      help="VOConfig() unmodified on bench.py's textured "
+                      "world, rendered on the card")
     args = ap.parse_args()
-    frames, _, _, cam = synthetic.render_sequence(**SEQ)
+    if args.textured:
+        seq = TexturedSequence(n_frames=410, seed=5, device="cuda")
+        frame, cam = seq.frame, seq.cam
+    else:
+        imgs, _, _, cam = synthetic.render_sequence(**synthetic.STAMPS)
+        frame = imgs.__getitem__
+    n_frames = synthetic.STAMPS["n_frames"]
     cfg = VOConfig()
-    if not args.production:
+    if not (args.production or args.textured):
         cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba,
                                                               enabled=False))
     fe = create_frontend(cfg, cam, device="cuda")
-    fe.run(frames[:WARM])
+    fe.run(frame(f) for f in range(WARM))
     torch.cuda.synchronize()
     _build.reset_launches()
     solves, redone = fe.n_ba_runs, fe.n_redone
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fe.run(frames[WARM:])
+        fe.run(frame(f) for f in range(WARM, n_frames))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    n = len(frames) - WARM
+    n = n_frames - WARM
     total, union = (x / 1e3 for x in busy_us(prof.events()))
     ka = prof.key_averages()
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")

@@ -1,0 +1,749 @@
+"""Kernel-parity selfcheck of the port on one CUDA card.
+
+    python -m ya_vo_tpu_torch.selfcheck
+
+Port of `tools/selfcheck.py`, the bench's parity guard. On two frames of
+the textured world it renders on the card (`TexturedSequence(seed=5,
+tex_size=1024, q_max=48, mip_levels=4, noise_sigma=0)` at 376x1241):
+  renderer          the card's frame against a float64 numpy ray tracer:
+                    fewer than 0.5% of pixels past 8 gray levels;
+  fast_score        K2 against its plain version (`check_fast`);
+  fast_select       the selection kernel against the plain sort path;
+  brief_determinism BRIEF descriptors of one detection twice, equal;
+  hamming           K3 against a numpy popcount on 256 descriptors, and
+                    against its plain version (`check_hamming`);
+  lk_level          K1 against its plain version (`check_lk`).
+Parity only (the `*_parity` functions): no timing, so a profiler that
+drops events cannot fail the guard. Prints one JSON line a check and a
+summary line; exits 1 if any check failed or could not run, 2 without a
+card. Nothing is skipped.
+
+This module is also the one copy of the kernel checks and their
+measurements that `chip_smoke.py` phase 3 and `tests/test_torch_kernels.py`
+use: each `check_*` runs its `*_parity` (which raises RuntimeError when
+the kernel breaks a stated tolerance), then returns the kernel's device time (profiler events of its own
+name), call time (CUDA events, host issue included), the plain version's
+time, the least time the card could take for the same work (bound) and a
+PyTorch library call's time where one computes the same function.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ya_vo_tpu_torch import _build
+from ya_vo_tpu_torch.config import VOConfig
+from ya_vo_tpu_torch.features import brief, fast, fast_cuda, hamming_cuda
+from ya_vo_tpu_torch.tracking import lk, lk_cuda
+from ya_vo_tpu_torch.tracking.frontend import detect_kwargs
+from ya_vo_tpu_torch.utils import scene
+from ya_vo_tpu_torch.utils.convert import offsets_from_numpy
+
+REPS = 20
+
+# K1 against its plain version, level by level on identical inputs:
+# positions within LK_UV_TOL px, with at most LK_FLIPS keypoints past it
+# (one version took one more step than the other where a step fell within
+# float noise of eps), and none in a coordinate pinned at a clamp (clamp
+# slots are put among the keypoints for that); eig, res and std within
+# LK_ATOL + LK_RTOL * |plain|. Measured on an H100 over three frame pairs
+# of the stamps world: |duv| <= 1.5e-5 px but for one eps flip (0.068 px),
+# errors of at most 1.2e-7 (eig), 1.2e-5 (res) and 4.7e-5 (std, which
+# loses absolute precision to E[T^2] - E[T]^2) of the plain value; the
+# one-launch kernel, whose iterations regroup the sums, on one frame pair:
+# |duv| <= 1.5e-5 px but the same flip, res within 1.5e-5.
+# The whole tracker: status equal on all but LK_FLIPS keypoints, clamped
+# coordinates within LK_UV_TOL, other positions past it on at most
+# LK_TRACK_FRAC of the tracks, since a coarse level's eps flip moves the
+# next level's seed and weakly conditioned tracks amplify it.
+LK_ITERS, LK_EPS = 30, 0.01
+LK_UV_TOL = 1e-3
+LK_FLIPS = 2
+LK_RTOL = 1e-4
+LK_ATOL = (1e-5, 1e-4, 1e-3)   # eig, res, std
+LK_TRACK_FRAC = 0.01
+
+# The card's published peaks (H100 SXM data sheet, dense, at 700 W): HBM
+# bytes/s, 32-bit operations/s outside the tensor cores, int8 tensor ops/s.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+INT8_OPS_S = 1979e12
+# Operations of the LK function, counted from the plain version's arithmetic
+# (index math not counted; a bilinear sample is 3 lerps of 2 mul + 1 add):
+# the 13x13 template (169 samples, central differences, T and T^2 sums,
+# the 2x2 normal matrix), one iteration (121 samples, error, mean, the two
+# gradient dot products) and the final residual (121 samples, |e| sum).
+LK_TEMPLATE_OPS = 169 * 9 + 121 * (4 + 1 + 2 + 6) + 30
+LK_ITER_OPS = 121 * (9 + 1 + 1 + 1 + 4) + 15
+LK_FINAL_OPS = 121 * (9 + 3)
+# Operations of the FAST candidates, counted where this run's data needs
+# them: every pixel takes the cardinal pre-test (2 bounds, 8 compares, 6
+# adds, 2 compares and an or); a pixel that passes it, the ring test (32
+# compares, 32 shifts and ors, two run tests of ~16 bit ops); a corner,
+# Harris (at each of 9 positions a Sobel pair of 12 adds, 3 products and 3
+# sums; then det, trace and the response: 7) and NMS (the (2r+1)^2 max, the
+# keep test and 4 border compares).
+FAST_PRE_OPS = 2 + 8 + 6 + 2 + 1
+FAST_RING_OPS = 32 + 32 + 2 * 16
+FAST_HARRIS_OPS = 9 * (12 + 3 + 3) + 7
+
+# the renderer against the float64 tracer (tools/selfcheck.py's gate)
+RENDER_DIFF, RENDER_FRAC = 8, 0.005
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Mean time of fn() over `reps` back-to-back calls, by CUDA events
+    around them: the host's issue of each call is inside it whenever the
+    host takes longer than the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_events(fn, reps: int = REPS):
+    """The profiler's CPU and device events over `reps` calls of fn, after
+    one call outside the profile."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return prof.events()
+
+
+def device_ms(fn, kernel=None, reps: int = REPS, launches_per_call=None):
+    """Mean device time per fn() call over `reps` calls, free of the host's
+    issue time: the summed durations of the profiler's device events whose
+    name holds `kernel` (every device event if None), over `reps`; with
+    `launches_per_call`, the mean duration of one such event times that
+    count (the profiler may drop an event of a long run)."""
+    evs = [e for e in profiled_events(fn, reps)
+           if e.device_type == DeviceType.CUDA
+           and (kernel is None or kernel in e.name)]
+    check(evs, f"the profiler saw no device events of {kernel}")
+    total_us = sum(e.time_range.end - e.time_range.start for e in evs)
+    if launches_per_call is not None:
+        check(len(evs) <= reps * launches_per_call,
+              f"{kernel}: {len(evs)} device events in {reps} calls, "
+              f"expected {launches_per_call} a call")
+        return total_us / len(evs) * launches_per_call / 1e3
+    return total_us / reps / 1e3
+
+
+def call_costs(fn, reps: int = REPS) -> dict:
+    """A call of fn: its device ms (all its device events: kernels,
+    copies, memsets), device events and CUDA runtime launch calls, and its
+    call ms (CUDA events, host issue included), each the mean over
+    `reps` calls."""
+    evs = profiled_events(fn, reps)
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    n_launch = sum(e.device_type == DeviceType.CPU
+                   and e.name.startswith("cudaLaunch") for e in evs)
+    return dict(device_ms=sum(e.time_range.end - e.time_range.start
+                              for e in dev) / reps / 1e3,
+                device_events=len(dev) / reps,
+                runtime_launches=n_launch / reps,
+                call_ms=time_ms(fn, reps))
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the operations over the peak."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def bits_equal(a, b) -> bool:
+    """Same shape and dtype and the same bits in every element (so -0 is
+    not +0); bools and integers by value."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def fast_work(img, args) -> dict:
+    """What the FAST candidates' bound counts on this frame: pixels, those
+    that pass the cardinal pre-test, and segment-test corners (from the
+    plain version's pieces)."""
+    f = img.to(torch.float32)
+    t, n = args["threshold"], args["arc_length"]
+    taps = [fast_cuda._shift(f, dv, du)
+            for dv, du in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+    n_bright = sum((v > f + t).to(torch.int32) for v in taps)
+    n_dark = sum((v < f - t).to(torch.int32) for v in taps)
+    pre = (n_bright >= n // 4) | (n_dark >= n // 4)
+    corner = fast_cuda.fast_response(f, t, n)
+    return dict(pixels=img.numel(), pretest=int(pre.sum()),
+                corners=int(corner.sum()))
+
+
+def _fast_args(kw) -> dict:
+    return dict(threshold=float(kw["threshold"]), arc_length=kw["arc_length"],
+                harris_k=kw["harris_k"], nms_radius=kw["nms_radius"])
+
+
+def fast_parity(img, kw):
+    """K2 on the uint8 frame with the main path's parameters `kw`: the map
+    (the kernel at border 0, scattered) equal to the plain map bit for bit
+    on the whole frame, edges included; the candidates inside the border
+    equal to the plain ones as a set, scores bit for bit. Returns the
+    results and the kernel's candidates."""
+    args = _fast_args(kw)
+    border = kw["border"]
+    kern = fast_cuda.fast_score_map(img, **args)
+    plain = fast_cuda.fast_score_map_plain(img.to(torch.float32), **args)
+    n_map_diff = int((kern.view(torch.int32)
+                      != plain.view(torch.int32)).sum())
+    check(n_map_diff == 0,
+          f"fast_score: the map differs from the plain one at {n_map_diff} px")
+    cand = fast_cuda.fast_candidates(img, border=border, **args)
+    ref = fast_cuda.fast_candidates_plain(img, border=border, **args)
+    n = int(cand.count)
+    idx, order = cand.idx[:n].sort()
+    check(n == int(ref.count) and torch.equal(idx, ref.idx)
+          and bits_equal(cand.score[:n][order], ref.score),
+          f"fast_score: {n} candidates at border {border}, plain "
+          f"{int(ref.count)}, or their indices or scores differ")
+    return dict(max_abs_err=0.0, map_px_differ=n_map_diff,
+                n_map_kept=int((plain > fast_cuda.NEG / 2).sum()),
+                n_candidates=n), cand
+
+
+def check_fast(img, kw):
+    """`fast_parity`, then K2's costs on this frame. Returns the results
+    and the kernel's candidates."""
+    out, cand = fast_parity(img, kw)
+    args, border, n = _fast_args(kw), kw["border"], out["n_candidates"]
+
+    def kernel():
+        return fast_cuda.fast_candidates(img, border=border, **args)
+
+    # uint8 in, (score, index) of each candidate and the count out; the
+    # operations this frame needs (fast_work)
+    work = fast_work(img, args)
+    nms_ops = (2 * kw["nms_radius"] + 1) ** 2 + 1 + 4
+    bound_ms, bound_by = bound(
+        img.numel() + 8 * n + 4,
+        work["pixels"] * FAST_PRE_OPS + work["pretest"] * FAST_RING_OPS
+        + work["corners"] * (FAST_HARRIS_OPS + nms_ops), F32_OPS_S)
+    return dict(out, **work,
+                device_ms=device_ms(kernel, "fast_score_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: fast_cuda.fast_candidates_plain(
+                    img, border=border, **args)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None), cand
+
+
+def topk_keys(cand):
+    """The candidates' unique int64 keys, in the order of the selection:
+    score (-0 as +0; signed-int order of the float bits) above, the
+    inverted flat index below."""
+    n = int(cand.count)
+    s = (cand.score[:n] + 0.0).view(torch.int32)
+    s = s ^ ((s >> 31) & 0x7FFFFFFF)
+    return (s.to(torch.int64) << 32) | (0xFFFFFFFF - cand.idx[:n].to(
+        torch.int64))
+
+
+def select_parity(cand, kw, H, W) -> dict:
+    """`fast_select` against the plain sort path, slot for slot, on K2's
+    candidates, and one `torch.topk` over the candidates' unique keys
+    picking the same candidates in the same order."""
+    K = kw["max_keypoints"]
+    kern = fast_cuda.select_top_k(*cand, H=H, W=W, k=K)
+    plain = fast_cuda.select_top_k_plain(*cand, H=H, W=W, k=K)
+    check(all(bits_equal(a, b) for a, b in zip(kern, plain)),
+          "fast_select: slots differ from the plain sort path")
+    n = int(cand.count)
+    keys = topk_keys(cand)
+    m = min(K, n)
+    top = torch.topk(keys, m).indices
+    idx = cand.idx[:n][top].to(torch.int64)
+    check(torch.equal(torch.stack([idx % W, idx // W], -1).float(),
+                      kern[0][:m]), "fast_select: torch.topk's order differs")
+    return dict(max_abs_err=0.0, n_candidates=n, k=K)
+
+
+def check_select(cand, kw, H, W):
+    """`select_parity`, then the selection's costs; its yardstick is one
+    `torch.topk` over the candidates' unique keys."""
+    out = select_parity(cand, kw, H, W)
+    K, n = out["k"], out["n_candidates"]
+    keys, m = topk_keys(cand), min(K, n)
+
+    def kernel():
+        return fast_cuda.select_top_k(*cand, H=H, W=W, k=K)
+
+    # the candidates and the count in, K slots (uv, score, mask) out; the
+    # compares of a comparison sort of the candidates
+    bound_ms, bound_by = bound(8 * n + 4 + K * (8 + 4 + 1),
+                               n * max(1, int(np.ceil(np.log2(max(n, 2))))),
+                               F32_OPS_S)
+    return dict(out,
+                device_ms=device_ms(kernel, "fast_select_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: fast_cuda.select_top_k_plain(
+                    *cand, H=H, W=W, k=K)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=device_ms(lambda: torch.topk(keys, m)))
+
+
+def check_detect(img, kw):
+    """The whole `fast.detect` on the card equals `detect` on the CPU in
+    every slot (masked slots included); its device time (all device events
+    of a call), call time, device events (kernels, copies, memsets) and
+    CUDA runtime launch calls a call."""
+    kern = fast.detect(img, **kw)
+    plain = fast.detect(img.cpu(), **kw)
+    check(all(bits_equal(a.cpu(), b) for a, b in zip(kern, plain)),
+          "detect: the card's keypoints differ from the CPU's")
+    _build.reset_launches()
+    fast.detect(img, **kw)
+    kernels = {k: v for k, v in _build.LAUNCHES.items() if v}
+    return dict(n_valid=int(plain.mask.sum()), kernels_a_call=kernels,
+                **call_costs(lambda: fast.detect(img, **kw)))
+
+
+def hamming_parity(d1, d2) -> dict:
+    """K3 against its plain version on (d1, d2) and on random descriptors:
+    equal."""
+    gen = torch.Generator().manual_seed(0)
+    r1, r2 = (torch.randint(-2 ** 31, 2 ** 31, (2048, 8), generator=gen,
+                            dtype=torch.int64).to(d1.device, torch.int32)
+              for _ in range(2))
+    err = 0
+    for a, b in ((d1, d2), (r1, r2)):
+        k = hamming_cuda.hamming_matrix(a, b)
+        p = hamming_cuda.hamming_matrix_plain(a, b)
+        err = max(err, (k - p).abs().max().item())
+    check(err == 0, f"hamming: kernel differs from plain by {err}")
+    return dict(max_abs_err=err)
+
+
+def check_hamming(d1, d2):
+    """`hamming_parity`, then K3's costs on (d1, d2)."""
+    out = hamming_parity(d1, d2)
+    kernel = lambda: hamming_cuda.hamming_matrix(d1, d2)  # noqa: E731
+    (K1, n_words), K2 = d1.shape, d2.shape[0]
+    n_bits = 32 * n_words
+    bound_ms, bound_by = bound(4 * (K1 + K2) * n_words + 4 * K1 * K2,
+                               2 * K1 * K2 * n_bits, INT8_OPS_S)
+    return dict(out,
+                device_ms=device_ms(kernel, "hamming_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
+                plain_ms=time_ms(
+                    lambda: hamming_cuda.hamming_matrix_plain(d1, d2)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=hamming_library_ms(d1, d2))
+
+
+def hamming_library_ms(d1, d2):
+    """Device time of one `torch._int_mm` on the +-1 int8 unpackings
+    (unpacked outside the timed region): the int8 tensor-core product
+    whose dot gives distance = (n_bits - dot) / 2. The port never calls
+    it; it is the yardstick. Checked against the plain distances."""
+    a = hamming_cuda.unpack_pm1(d1).to(torch.int8)
+    b = hamming_cuda.unpack_pm1(d2).to(torch.int8).T
+    dot = torch._int_mm(a, b)
+    dist = (a.shape[1] - dot) // 2
+    check(torch.equal(dist, hamming_cuda.hamming_matrix_plain(d1, d2)),
+          "hamming: torch._int_mm distances differ from the plain ones")
+    return device_ms(lambda: torch._int_mm(a, b))
+
+
+def lk_edge_cases(uv0, seed, mask, H, W):
+    """Copies of the keypoints, seeds and mask with the last slots replaced
+    by border clamps (templates at, past and far past the image edges,
+    seeds past the padded level) and by dead slots holding garbage
+    positions; and the mask of the clamp slots."""
+    clamps = [((1.0, 2.0), (0.5, -3.0)),
+              ((W - 2.0, H - 1.5), (W + 9.0, H + 4.0)),
+              ((W - 6.3, H / 2 + 0.2), (W - 4.0, H / 2 + 1.0)),
+              ((3.2, H - 2.7), (-5.0, H + 30.0)),
+              ((W + 20.0, 50.0), (W + 49.0, 48.0)),
+              ((W / 2, H - 3.0), (W / 2 + 0.5, H + 14.0)),
+              ((W - 3.5, 100.0), (W + 2.0, 101.0)),
+              ((W / 3, H - 1.0), (W / 3 + 1.0, H + 6.0)),
+              ((W + 600.0, H / 2), (W + 600.0, H / 2)),
+              ((W / 2 + 0.3, H + 40.0), (W / 2, H + 40.0))]
+    dead = [(-40.0, 900.0), (1e4, -1e4)]
+    uv0, seed, mask = uv0.clone(), seed.clone(), mask.clone()
+    n = len(clamps) + len(dead)
+    for i, (t, s) in enumerate(clamps):
+        uv0[i - n] = torch.tensor(t, device=uv0.device)
+        seed[i - n] = torch.tensor(s, device=uv0.device)
+    for i, s in enumerate(dead):
+        seed[i - len(dead)] = torch.tensor(s, device=uv0.device)
+    mask[-n:] = True
+    mask[-len(dead):] = False
+    edge = torch.zeros_like(mask)
+    edge[-n:-len(dead)] = True
+    return uv0, seed, mask, edge
+
+
+def pinned_at_clamp(uv, edge, H, W):
+    """[N, 2]: the coordinates of the clamp slots `edge` that sit on a
+    bound of the position clamp of an H x W level, where no eps test can
+    move them."""
+    Hp, Wp = lk_cuda.padded_size(H, W)
+    lo = lk_cuda.LO
+    return edge[:, None] & torch.stack(
+        [(uv[:, 0] == lo) | (uv[:, 0] == Wp - 8.0),
+         (uv[:, 1] == lo) | (uv[:, 1] == Hp - 8.0)], dim=1)
+
+
+def lk_level_errors(k, p, valid, pinned):
+    """Kernel outputs k against plain outputs p of one level. A position
+    may pass LK_UV_TOL only where one version took one more step than the
+    other (a step within float noise of eps), never in a coordinate the
+    plain one has `pinned` at a clamp; res is compared on the other
+    keypoints, and dead slots must be equal bit for bit."""
+    d = (k[0] - p[0]).abs()
+    d_uv = d.max(1).values
+    near = d_uv <= LK_UV_TOL
+    out = dict(max_duv=d_uv[valid].max().item(),
+               n_past_tol=int((~near & valid).sum()),
+               n_pinned=int(pinned.any(1).sum()),
+               pinned_past_tol=int(((d > LK_UV_TOL) & pinned).any(1).sum()),
+               dead_equal=all(torch.equal(a[~valid], b[~valid])
+                              for a, b in zip(k, p)))
+    for name, a, b, atol in zip(("eig", "res", "std"), k[1:], p[1:],
+                                LK_ATOL):
+        live = valid & near if name == "res" else valid
+        err = (a - b)[live].abs()
+        out[f"{name}_max_abs"] = err.max().item()
+        out[f"{name}_max_rel"] = (err / b[live].abs()).nan_to_num(
+            posinf=0.0).max().item()
+        out[f"{name}_ok"] = bool((err <= atol + LK_RTOL
+                                  * b[live].abs()).all())
+    return out
+
+
+def compare_lk(img0, img1, uv0, seed, mask, edge):
+    """K1 against its plain version on the card, level by level on
+    identical inputs (each level seeded by the kernel's previous level);
+    then the whole tracker (one launch) on the card against the plain one
+    on the CPU. Returns (errors by level, the two pyramids, the tracker's
+    errors); each level's errors hold the iterations the plain version ran
+    there."""
+    pyr0 = lk.build_pyramid(img0, 3)
+    pyr1 = lk.build_pyramid(img1, 3)
+    lvl_seed, per_level = seed / 4.0, {}
+    for lvl in (2, 1, 0):
+        args = (pyr0[lvl], pyr1[lvl], (uv0 / 2.0 ** lvl).contiguous(),
+                lvl_seed.contiguous(), mask)
+        k = lk_cuda.track_level(*args, iters=LK_ITERS, eps=LK_EPS)
+        *p, n_iters = lk_cuda.track_level_plain(
+            *args, iters=LK_ITERS, eps=LK_EPS, with_iters=True)
+        per_level[lvl] = lk_level_errors(
+            k, p, mask, pinned_at_clamp(p[0], edge, *args[0].shape))
+        per_level[lvl]["iterations"] = int(n_iters.sum())
+        lvl_seed = k[0] * 2.0 if lvl > 0 else k[0]
+
+    kern = lk_cuda.track(img0, img1, uv0, seed, mask)
+    plain = lk_cuda.track(img0.cpu(), img1.cpu(), uv0.cpu(), seed.cpu(),
+                          mask.cpu())
+    k_st = kern.status.cpu()
+    pinned = pinned_at_clamp(plain.uv, edge.cpu(), *img0.shape)
+    d = (kern.uv.cpu() - plain.uv).abs()
+    d_uv = d.max(1).values[k_st & plain.status]
+    tracker = dict(max_duv=d_uv.max().item(),
+                   n_past_tol=int((d_uv > LK_UV_TOL).sum()),
+                   status_flips=int((k_st != plain.status).sum()),
+                   n_pinned=int(pinned.any(1).sum()),
+                   pinned_differ=int(((d > LK_UV_TOL) & pinned).any(1).sum()),
+                   status_kernel=int(k_st.sum()),
+                   status_plain=int(plain.status.sum()))
+    return per_level, (pyr0, pyr1), tracker
+
+
+def lk_problems(per_level, tracker) -> list:
+    """What compare_lk's errors break of the stated tolerances."""
+    bad = []
+    for lvl, s in per_level.items():
+        if s["n_past_tol"] > LK_FLIPS:
+            bad.append(f"level {lvl}: {s['n_past_tol']} keypoints past "
+                       f"{LK_UV_TOL} px (max {s['max_duv']})")
+        if s["pinned_past_tol"]:
+            bad.append(f"level {lvl}: {s['pinned_past_tol']} clamped "
+                       f"positions past {LK_UV_TOL} px")
+        if not s["dead_equal"]:
+            bad.append(f"level {lvl}: dead slots differ")
+        bad += [f"level {lvl}: {n} differs, max abs {s[f'{n}_max_abs']}, "
+                f"max rel {s[f'{n}_max_rel']}"
+                for n in ("eig", "res", "std") if not s[f"{n}_ok"]]
+    if tracker["status_flips"] > LK_FLIPS:
+        bad.append(f"status differs on {tracker['status_flips']} keypoints")
+    if tracker["pinned_differ"]:
+        bad.append(f"{tracker['pinned_differ']} clamped tracks past "
+                   f"{LK_UV_TOL} px")
+    if tracker["n_past_tol"] > max(LK_FLIPS,
+                                   LK_TRACK_FRAC * tracker["status_plain"]):
+        bad.append(f"{tracker['n_past_tol']} tracks past {LK_UV_TOL} px "
+                   f"of {tracker['status_plain']}")
+    return bad
+
+
+def lk_parity(img0, img1, uv0, mask):
+    """K1 against its plain version (`compare_lk`) on the keypoints uv0
+    with border clamps and dead slots among them, held to the stated
+    tolerances. Returns (errors by level, tracker errors, the pyramids,
+    the cases)."""
+    H, W = img0.shape
+    cases = lk_edge_cases(uv0, uv0, mask, H, W)
+    per_level, pyrs, tracker = compare_lk(img0, img1, *cases)
+    print("kernel lk_level errors: " + json.dumps(
+        dict(per_level=per_level, tracker=tracker)), flush=True)
+    bad = lk_problems(per_level, tracker)
+    check(not bad, "lk: " + "; ".join(bad))
+    return per_level, tracker, pyrs, cases
+
+
+def lk_summary(per_level, tracker) -> dict:
+    return dict(max_abs_err=max(s["max_duv"] for s in per_level.values()),
+                **{f"track_{k}": v for k, v in tracker.items()},
+                iterations=sum(s["iterations"]
+                               for s in per_level.values()))
+
+
+def check_lk(img0, img1, uv0, mask):
+    """`lk_parity`, then K1's costs on these inputs."""
+    per_level, tracker, (pyr0, pyr1), cases = lk_parity(img0, img1, uv0,
+                                                         mask)
+    uv0, seed, mask, _ = cases
+
+    def kernel():
+        return lk_cuda.track_pyramids(pyr0, pyr1, uv0, seed, mask,
+                                      iters=LK_ITERS, eps=LK_EPS)
+
+    def plain():
+        return lk_cuda.track_pyramids_plain(pyr0, pyr1, uv0, seed, mask,
+                                            iters=LK_ITERS, eps=LK_EPS)
+
+    # the tracker's work: each level of both pyramids, the keypoints, seeds
+    # and mask read once, uv, residual and status written once; the
+    # operations of the iterations the plain version ran on these inputs
+    n_live = int(mask.sum())
+    n_bytes = sum(2 * 4 * a.numel() for a in pyr0) \
+        + mask.numel() * (8 + 8 + 1 + 8 + 4 + 1)
+    n_ops = sum(n_live * (LK_TEMPLATE_OPS + LK_FINAL_OPS)
+                + s["iterations"] * LK_ITER_OPS for s in per_level.values())
+    bound_ms, bound_by = bound(n_bytes, n_ops, F32_OPS_S)
+    return dict(lk_summary(per_level, tracker),
+                device_ms=device_ms(kernel, "lk_pyramid_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
+                plain_ms=time_ms(plain, reps=5),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# the renderer, BRIEF and K3 against numpy
+# ---------------------------------------------------------------------------
+def parity_sequence(device="cuda") -> scene.TexturedSequence:
+    """The selfcheck's world: bench's seed with a 1024-texel atlas, 48
+    quads and 4 mips (parity does not depend on the atlas size), at
+    376x1241, without sensor noise."""
+    return scene.TexturedSequence(n_frames=3, seed=5, noise_sigma=0.0,
+                                  tex_size=1024, q_max=48, mip_levels=4,
+                                  device=device)
+
+
+def render_reference(seq, f: int = 0) -> np.ndarray:
+    """Frame `f` of `seq` (ss 1, gain and bias of frame 0, no noise) ray
+    cast in float64 numpy, quad by quad (tools/selfcheck.py's tracer)."""
+    culled = scene.cull_quads(seq.quads, seq.poses[f], seq.q_max)
+    K_inv = np.asarray(seq.K_inv, np.float64)
+    pose = seq.poses[f].astype(np.float64)
+    H, W = seq.height, seq.width
+    R, t = pose[:3, :3], pose[:3, 3]
+    cw = -R.T @ t
+    vv, uu = np.meshgrid(np.arange(H, dtype=np.float64),
+                         np.arange(W, dtype=np.float64), indexing="ij")
+    d_cam = np.stack([uu, vv, np.ones_like(uu)], -1) @ K_inv.T
+    d_w = d_cam @ R
+
+    bt = np.full((H, W), 1e9)
+    ba = np.zeros((H, W)); bb = np.zeros((H, W))
+    brect = np.zeros((H, W, 4)); bden = np.zeros((H, W))
+    for q in range(len(culled.origin)):
+        if not culled.valid[q]:
+            continue
+        o = culled.origin[q].astype(np.float64)
+        v1 = culled.e1[q].astype(np.float64)
+        v2 = culled.e2[q].astype(np.float64)
+        rect = culled.atlas[q].astype(np.float64)
+        n = np.cross(v1, v2)
+        denom = d_w @ n
+        denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+        tt = np.dot(o - cw, n) / denom
+        p = cw + tt[..., None] * d_w
+        rel = p - o
+        a = (rel @ v1) / max(v1 @ v1, 1e-9)
+        b = (rel @ v2) / max(v2 @ v2, 1e-9)
+        z = tt * d_cam[..., 2]
+        good = ((z > 0.2) & (tt < bt) & (a >= 0) & (a <= 1)
+                & (b >= 0) & (b <= 1))
+        bt = np.where(good, tt, bt)
+        ba = np.where(good, a, ba); bb = np.where(good, b, bb)
+        brect = np.where(good[..., None], rect, brect)
+        bden = np.where(good, rect[2] / np.sqrt(max(v1 @ v1, 1e-9)), bden)
+    hit = bt < 5e8
+
+    mips = [m.cpu().numpy().astype(np.float64) for m in seq.mips]
+    tu = brect[..., 0] + ba * brect[..., 2]
+    tv = brect[..., 1] + bb * brect[..., 3]
+    fx_eff = 1.0 / K_inv[0, 0]
+    lod = np.log2(np.maximum(bt * bden / fx_eff, 1e-6))
+    lod = np.clip(lod, 0.0, len(mips) - 1.001)
+    val = np.zeros((H, W))
+    for li, tex in enumerate(mips):
+        S0, S1 = tex.shape
+        u = np.clip(tu * 0.5 ** li, 0, S1 - 1.001)
+        v = np.clip(tv * 0.5 ** li, 0, S0 - 1.001)
+        u0 = np.floor(u).astype(int); v0 = np.floor(v).astype(int)
+        fu, fv = u - u0, v - v0
+        s = (tex[v0, u0] * (1 - fu) * (1 - fv) + tex[v0, u0 + 1] * fu * (1 - fv)
+             + tex[v0 + 1, u0] * (1 - fu) * fv + tex[v0 + 1, u0 + 1] * fu * fv)
+        val += np.clip(1.0 - np.abs(lod - li), 0, 1) * s
+    elev = d_cam[..., 1]
+    sky = 205.0 + 28.0 * np.clip(elev, -1.0, 0.3)
+    ref = np.where(hit, val, sky)
+    cyy, cxx = (H - 1) / 2.0, (W - 1) / 2.0
+    r2 = (((np.arange(H) - cyy) / cyy)[:, None] ** 2
+          + ((np.arange(W) - cxx) / cxx)[None, :] ** 2)
+    return np.clip(ref * (1.0 - 0.18 * r2 / 2.0), 0, 255)
+
+
+def check_renderer(seq, img0) -> dict:
+    """Frame 0 as rendered (`img0`) against the float64 tracer: fewer than
+    RENDER_FRAC of the pixels past RENDER_DIFF gray levels (hit-boundary
+    pixels flip quad edges on one-ULP ray differences)."""
+    diff = np.abs(render_reference(seq, 0) - img0.cpu().numpy())
+    frac_big = float((diff > RENDER_DIFF).mean())
+    check(frac_big < RENDER_FRAC,
+          f"renderer: {frac_big} of the pixels past {RENDER_DIFF} levels")
+    return dict(mean_abs=float(diff.mean()), frac_gt8=frac_big,
+                max_abs_err=float(diff.max()))
+
+
+def check_brief(img) -> tuple:
+    """FAST + BRIEF of one frame as the frontend's `_extract` runs them,
+    BRIEF twice: equal bit for bit. Returns (results, keypoints, the
+    descriptors)."""
+    fc = VOConfig().features
+    kp = fast.detect(img, **detect_kwargs(fc))
+    offsets = offsets_from_numpy(brief.make_offsets(
+        fc.brief_n_bits, fc.brief_patch_radius, fc.brief_seed), img.device)
+    blur = brief.gaussian_blur(img.to(torch.float32), fc.blur_ksize,
+                               fc.blur_sigma)
+    d1, _ = brief.describe(blur, kp.uv, kp.mask, offsets)
+    d2, _ = brief.describe(blur, kp.uv, kp.mask, offsets)
+    check(torch.equal(d1, d2), "brief: two runs differ")
+    return dict(n_desc=int(kp.mask.sum())), kp, d1
+
+
+def check_hamming_popcount(desc, mask) -> dict:
+    """K3 on the card against a numpy popcount on the first 256 valid
+    descriptors (every pair among them)."""
+    sub = torch.nonzero(mask).reshape(-1)[:256]
+    a = desc[sub]
+    got = hamming_cuda.hamming_matrix(a, a).cpu().numpy()
+    x = a.cpu().numpy()
+    ref = np.unpackbits((x[:, None, :] ^ x[None, :, :]).view(np.uint8),
+                        axis=-1).sum(-1)
+    err = int(np.abs(got - ref).max())
+    check(err == 0, f"hamming: {err} bits from the numpy popcount")
+    return dict(n=len(sub), max_abs_err=err)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("selfcheck: no CUDA device", file=sys.stderr)
+        return 2
+    results = []
+
+    def run(name, fn):
+        print(f"[selfcheck] running: {name}", file=sys.stderr, flush=True)
+        try:
+            out = fn()
+            rec = {"check": name, "ok": True, **out}
+        except Exception as e:    # report every check, then fail the run
+            rec = {"check": name, "ok": False,
+                   "error": f"{type(e).__name__}: {e}"}
+        results.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "card": card_line()}), flush=True)
+    _build.library()
+    seq = parity_sequence()
+    img0, img1 = seq.frame(0), seq.frame(1)
+    kw = detect_kwargs(VOConfig().features)
+    state = {}
+
+    def fast_score():
+        r, state["cand"] = fast_parity(img0, kw)
+        return r
+
+    def brief_det():
+        r, state["kp"], state["desc"] = check_brief(img0)
+        return r
+
+    def hamming():
+        pop = check_hamming_popcount(state["desc"], state["kp"].mask)
+        return dict(popcount=pop, **hamming_parity(state["desc"],
+                                                   state["desc"]))
+
+    run("renderer", lambda: check_renderer(seq, img0))
+    run("fast_score", fast_score)
+    run("fast_select", lambda: select_parity(state["cand"], kw,
+                                             *img0.shape))
+    run("brief_determinism", brief_det)
+    run("hamming", hamming)
+    run("lk_level", lambda: lk_summary(*lk_parity(
+        img0.float(), img1.float(), state["kp"].uv, state["kp"].mask)[:2]))
+    n_fail = sum(not r["ok"] for r in results)
+    print(json.dumps({"selfcheck": "PASS" if n_fail == 0 else "FAIL",
+                      "n_checks": len(results), "n_fail": n_fail}),
+          flush=True)
+    return 1 if n_fail else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

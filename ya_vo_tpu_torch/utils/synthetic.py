@@ -13,6 +13,12 @@ import numpy as np
 
 from ya_vo_tpu_torch.core.camera import Camera
 
+# The stamps world of bench.py's secondary (bench.py:194-196): the
+# `render_sequence` arguments of the port's main path in chip_smoke.py,
+# profile_slice and the card tests.
+STAMPS = dict(n_frames=40, n_landmarks=1200, height=376, width=1241,
+              step=0.5, yaw_rate=0.002, seed=11, corridor=True)
+
 
 def kitti_camera() -> Camera:
     """The KITTI gray-camera intrinsics (reference tests/calib.txt:1)."""
