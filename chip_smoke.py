@@ -54,9 +54,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      inside the run: at most one reset more than the JAX reference on its
      own render of the segment, no BA discards, at least one solve,
      ATE_sim3 below 0.25 and held at four digits with the keyframes
-     (TEXTURED_ATE, TEXTURED_KEYFRAMES).
-Each of phases 4-6 and 8 zeroes the launch counts just before its run,
-reads them just after, and fails unless every kernel ran in it. Prints a
+     (TEXTURED_ATE, TEXTURED_KEYFRAMES);
+  9. cli: the user's entry point, `ya_vo_tpu_torch.run_vo` (its
+     synchronous `process` loop). (a) `--synthetic` at its defaults (30
+     frames, 376x1241, synchronous BA): the summary's keys are the JAX
+     CLI's, resets and solves equal to the JAX CLI's on the same arguments
+     (JAX_CLI, `port_jax_reference.py --runs cli`), ATE_sim3 held at four
+     digits (CLI_ATE). (b) a KITTI tree written under a temporary
+     directory (the first CLI_N frames of phase 8's world rendered on the
+     card, as .npy, or PNG where PIL imports; calib.txt from the world's
+     camera; poses/00.txt from its ground truth) run with
+     configs/KITTI.json, only `base_path` and `sequence` replaced
+     (asynchronous window BA on the backend stream, every 2nd keyframe,
+     16384 landmarks), `--checkpoint-every 60 --refine --live 0`: resets at
+     most JAX_CLI_KITTI's + 1, at least one solve, no more discards than
+     solves, ATE_sim3 under CLI_KITTI_ATE_MAX, the trajectory file
+     (CLI_N, 12), the live viewer's /state.json at the last frame. (c) a
+     fresh frontend loads the 60-frame checkpoint and processes frames
+     60 on: ATE_sim3 within max(0.05, 2x) of (b)'s raw one. (d) the frames
+     of (b) with `asynchronous` false, for the frames/s of the two.
+Each of phases 4-6, 8 and the runs of 9 zeroes the launch counts just
+before its run, reads them just after, and fails unless every kernel ran
+in it. Prints a
 JSON line with the kernels' results, then the card, then, as the last
 line, {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -65,8 +84,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -116,6 +139,60 @@ TEXTURED_ATE = 0.0206
 TEXTURED_KEYFRAMES = 75
 JAX_TEXTURED = dict(ate_sim3=0.028769486322771494, resets=1,
                     relocalizations=1, keyframes=75, ba_solves=24)
+
+
+# phase 9: the CLI. (a) `--synthetic` at its defaults: the port's card
+# ATE_sim3 at four digits, and the JAX CLI's summary on the same arguments
+# (`port_jax_reference.py --runs cli`, the JAX package on the CPU, LK with
+# the TPU kernel's semantics); (b) the first CLI_N frames of phase 8's world
+# as a KITTI tree under configs/KITTI.json, the JAX CLI on its own render of
+# the same frames beside it; (b)'s ATE_sim3 is bounded, not pinned
+# (asynchronous BA applies at timing-dependent frames)
+CLI_ATE = 0.0214
+JAX_CLI = dict(frames=30, resets=0, ba_runs=4, ba_discarded=0,
+               relocalizations=0, ate_sim3_m=0.0104)
+CLI_N = 120
+CLI_CKPT_EVERY = 60
+CLI_KITTI_ATE_MAX = 0.05   # the first card run: 0.0192 raw (JAX 0.0254)
+JAX_CLI_KITTI = dict(frames=120, resets=0, ba_runs=29, ba_discarded=0,
+                     relocalizations=0, keyframes=61, ate_sim3_m=0.0254)
+KITTI_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "KITTI.json")
+
+
+def write_kitti_tree(base: str, frames, cam, poses_wc, seq: str = "00",
+                     png: bool = False) -> None:
+    """A KITTI odometry tree under `base`: sequences/<seq>/image_0/NNNNNN
+    (.npy, or .png through PIL), calib.txt (P0 = P1 = K [I | 0] from `cam`)
+    and poses/<seq>.txt (camera->world rows of the truth)."""
+    img_dir = os.path.join(base, "sequences", seq, "image_0")
+    os.makedirs(img_dir)
+    os.makedirs(os.path.join(base, "poses"))
+    for f, img in enumerate(frames):
+        name = os.path.join(img_dir, f"{f:06d}")
+        if png:
+            from PIL import Image
+            Image.fromarray(img).save(name + ".png")
+        else:
+            np.save(name + ".npy", img)
+    fx, fy, cx, cy = (float(c) for c in cam[:4])
+    row = f"{fx!r} 0 {cx!r} 0 0 {fy!r} {cy!r} 0 0 0 1 0"
+    with open(os.path.join(base, "sequences", seq, "calib.txt"), "w") as fp:
+        fp.write(f"P0: {row}\nP1: {row}\n")
+    rows = np.linalg.inv(poses_wc)[:, :3, :4].reshape(len(poses_wc), 12)
+    np.savetxt(os.path.join(base, "poses", f"{seq}.txt"), rows)
+
+
+def kitti_config(base: str, path: str, seq: str = "00", **ba) -> str:
+    """configs/KITTI.json with only `base_path` and `sequence` replaced
+    (and the `ba` entries given), written to `path`."""
+    with open(KITTI_CONFIG) as fp:
+        cfg = json.load(fp)
+    cfg["base_path"], cfg["sequence"] = base, seq
+    cfg["ba"].update(ba)
+    with open(path, "w") as fp:
+        json.dump(cfg, fp)
+    return path
 
 
 def with_blackout(frames):
@@ -313,6 +390,168 @@ def run_textured(card) -> dict:
                 card=card)
 
 
+def _summary_checks(name: str, summary: dict, n: int) -> None:
+    """The JAX CLI's summary keys (with ground truth and KITTI segments
+    absent under 100 m) and a finite ATE."""
+    keys = {"frames", "fps", "resets", "ba_runs", "n_landmarks", "n_alive",
+            "n_keyframes", "n_free", "n_recycled", "n_retired",
+            "n_evicted_keyframes", "n_dropped_landmarks", "ate_sim3_m",
+            "ate_se3_m", "rpe_trans_m", "rpe_rot_deg", "scale_drift_rms_log"}
+    seg = {"kitti_t_err_pct", "kitti_r_err_deg_per_m"}
+    check(set(summary) in (keys, keys | seg),
+          f"{name}: summary keys {sorted(summary)}")
+    check(summary["frames"] == n, f"{name}: {summary['frames']} frames")
+    check(np.isfinite(summary["ate_sim3_m"]), f"{name}: ATE not finite")
+
+
+def _ba_counts(fe) -> dict:
+    return dict(ba_solves=fe.n_ba_runs, ba_discarded=fe.n_ba_discarded,
+                ba_deferred=fe.n_ba_deferred, ba_calls=len(fe.ba_ms),
+                ba_solve_call_ms_mean=(float(np.mean(fe.ba_ms))
+                                       if fe.ba_ms else None))
+
+
+def _per_frame(launches: dict, n: int) -> dict:
+    return {k: v / n for k, v in launches.items()}
+
+
+def run_cli(card, tmp: str, n: int = CLI_N, textured: dict = TEXTURED,
+            extra=(), device: str = "cuda") -> dict:
+    """Phase 9 (module docstring) in the directory `tmp`; `extra` CLI
+    arguments and `device` let a CPU rehearsal run it small."""
+    from ya_vo_tpu_torch import run_vo
+    from ya_vo_tpu_torch.io import kitti
+    from ya_vo_tpu_torch.tracking.frontend import Frontend
+    from ya_vo_tpu_torch.utils import checkpoint
+
+    out = dict(card=card)
+    extra = list(extra)
+    t0 = time.perf_counter()
+    # (a) --synthetic at its defaults
+    _build.reset_launches()
+    fe, s_a = run_vo.session(["--synthetic", "--traj",
+                              os.path.join(tmp, "a.txt")] + extra)
+    launches = path_launches("cli --synthetic")
+    n_a = s_a["frames"]
+    _summary_checks("cli --synthetic", s_a, n_a)
+    check(np.loadtxt(os.path.join(tmp, "a.txt")).shape == (n_a, 12),
+          "cli --synthetic: trajectory file shape")
+    if JAX_CLI is not None:
+        check(n_a == JAX_CLI["frames"] and s_a["resets"] == JAX_CLI["resets"]
+              and s_a["ba_runs"] == JAX_CLI["ba_runs"],
+              f"cli --synthetic: {s_a}, JAX {JAX_CLI}")
+    if CLI_ATE is not None:
+        check(s_a["ate_sim3_m"] == CLI_ATE,
+              f"cli --synthetic: ATE_sim3 {s_a['ate_sim3_m']}, not "
+              f"{CLI_ATE}")
+    out["synthetic"] = dict(summary=s_a, jax=JAX_CLI, **_ba_counts(fe),
+                            launches=launches,
+                            launches_per_frame=_per_frame(launches, n_a),
+                            seconds=time.perf_counter() - t0)
+    del fe
+    t0 = time.perf_counter()
+
+    # (b) a KITTI tree of phase 8's world under configs/KITTI.json
+    try:
+        import PIL  # noqa: F401
+        png = True
+    except ImportError:
+        png = False
+    print(f"cli kitti: frames written as {'PNG' if png else '.npy'}",
+          flush=True)
+    seq = TexturedSequence(**textured, device=device)
+    base = os.path.join(tmp, "kitti")
+    write_kitti_tree(base, (seq.frame(f).cpu().numpy() for f in range(n)),
+                     seq.cam, seq.poses[:n], png=png)
+    gt_cw = np.linalg.inv(seq.poses[:n])
+    del seq
+    cfg = kitti_config(base, os.path.join(tmp, "kitti.json"))
+    traj_b, ckpt_b = (os.path.join(tmp, x) for x in ("b.txt", "b.npz"))
+    ckpt_mid = os.path.join(tmp, "b_mid.npz")
+
+    def keep_mid(r):
+        # the checkpoint written after frame CLI_CKPT_EVERY - 1, before the
+        # run overwrites it
+        if r.frame_id == CLI_CKPT_EVERY:
+            shutil.copy(ckpt_b, ckpt_mid)
+
+    _build.reset_launches()
+    fe, s_b = run_vo.session(
+        ["--config", cfg, "--traj", traj_b, "--checkpoint", ckpt_b,
+         "--checkpoint-every", str(CLI_CKPT_EVERY), "--refine", "--live", "0"]
+        + extra, observers=[keep_mid])
+    launches = path_launches("cli kitti")
+    _summary_checks("cli kitti", s_b, n)
+    check(fe.cfg.ba.asynchronous and fe.cfg.ba.every_n_keyframes == 2
+          and fe.cfg.map.max_landmarks == 16384,
+          "cli kitti: configs/KITTI.json not as shipped")
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{fe.live_viewer.port}/state.json",
+            timeout=10) as r:
+        state = json.loads(r.read())
+    fe.live_viewer.close()
+    check(state["frame_id"] == n - 1,
+          f"cli kitti: live viewer at frame {state['frame_id']}")
+    check(np.loadtxt(traj_b).shape == (n, 12),
+          "cli kitti: trajectory file shape")
+    ate_raw = evaluation.ate_rmse(np.stack(fe.trajectory), gt_cw,
+                                  with_scale=True)
+    check(fe.n_ba_runs >= 1 and fe.n_ba_discarded <= fe.n_ba_runs,
+          f"cli kitti: {fe.n_ba_runs} solves applied, "
+          f"{fe.n_ba_discarded} discarded")
+    if JAX_CLI_KITTI is not None:
+        check(fe.n_resets <= JAX_CLI_KITTI["resets"] + 1,
+              f"cli kitti: {fe.n_resets} resets, JAX "
+              f"{JAX_CLI_KITTI['resets']}")
+    if CLI_KITTI_ATE_MAX is not None:
+        check(ate_raw < CLI_KITTI_ATE_MAX,
+              f"cli kitti: ATE_sim3 {ate_raw}, bound {CLI_KITTI_ATE_MAX}")
+    fe.finish()
+    out["kitti"] = dict(summary=s_b, ate_sim3_raw=ate_raw, png=png,
+                        live_frame_id=state["frame_id"], jax=JAX_CLI_KITTI,
+                        relocalizations=fe.n_relocalizations,
+                        **_ba_counts(fe), launches=launches,
+                        launches_per_frame=_per_frame(launches, n),
+                        seconds=time.perf_counter() - t0)
+    cam = fe.cam
+    del fe
+    t0 = time.perf_counter()
+
+    # (c) resume from the mid-run checkpoint in a fresh frontend
+    vcfg = VOConfig.from_json(cfg)
+    paths = kitti.list_images(base, "00")
+    _build.reset_launches()
+    fe = Frontend(vcfg, cam, device=device)
+    checkpoint.load_frontend(fe, ckpt_mid)
+    check(fe.frame_id == CLI_CKPT_EVERY - 1,
+          f"cli resume: checkpoint at frame {fe.frame_id}")
+    for p in paths[CLI_CKPT_EVERY:]:
+        fe.process(kitti.load_image_gray(p))
+    fe.finish()
+    launches = path_launches("cli resume")
+    ate_c = evaluation.ate_rmse(np.stack(fe.trajectory), gt_cw,
+                                with_scale=True)
+    check(len(fe.trajectory) == n, "cli resume: trajectory length")
+    check(ate_c < max(0.05, 2 * ate_raw),
+          f"cli resume: ATE_sim3 {ate_c} against {ate_raw} unbroken")
+    out["resume"] = dict(ate_sim3=ate_c, resets=fe.n_resets,
+                         **_ba_counts(fe), launches=launches,
+                         launches_per_frame=_per_frame(
+                             launches, n - CLI_CKPT_EVERY),
+                         seconds=time.perf_counter() - t0)
+    del fe
+    t0 = time.perf_counter()
+
+    # (d) the frames of (b) with synchronous BA
+    cfg_sync = kitti_config(base, os.path.join(tmp, "kitti_sync.json"),
+                            asynchronous=False)
+    fe, s_d = run_vo.session(["--config", cfg_sync] + extra)
+    check(s_d["frames"] == n, f"cli kitti sync BA: {s_d['frames']} frames")
+    out["kitti_sync_ba"] = dict(summary=s_d, **_ba_counts(fe),
+                                seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -402,8 +641,20 @@ def main() -> int:
     # 8. textured path
     textured = run_textured(card)
     print("textured path: " + json.dumps(textured), flush=True)
+    # 9. the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = run_cli(card, tmp)
+    for part in ("synthetic", "kitti", "resume", "kitti_sync_ba"):
+        print(f"cli {part}: " + json.dumps(cli[part]), flush=True)
+    fps = {k: cli[k]["summary"]["fps"]
+           for k in ("synthetic", "kitti", "kitti_sync_ba")}
+    print("cli frames/s (process loop): " + json.dumps(fps) + "; " + card,
+          flush=True)
     by_path = {"ba_off": launches, "production": prod["launches"],
-               "reset": reset["launches"], "textured": textured["launches"]}
+               "reset": reset["launches"], "textured": textured["launches"],
+               "cli_synthetic": cli["synthetic"]["launches"],
+               "cli_kitti": cli["kitti"]["launches"],
+               "cli_resume": cli["resume"]["launches"]}
 
     sources = {"fast_score": ("ya_vo_tpu_torch/csrc/fast_score.cu",
                               "ya_vo_tpu/features/pallas_fast.py:70"),

@@ -28,6 +28,16 @@ one of (the first four by default):
              `solve_window` in float32 and in float64 on the same problem:
              the three windows whose port and JAX poses differ most, each
              with both solves' distance to the float64 one.
+  cli      - the JAX CLI, `run_vo.main`, on chip_smoke.py phase 9's
+             arguments: `--synthetic` at its defaults (30 frames,
+             376x1241), then a KITTI tree (`chip_smoke.write_kitti_tree`)
+             of the first `chip_smoke.CLI_N` frames of the textured world
+             rendered by the JAX package, under configs/KITTI.json with
+             only `base_path` and `sequence` replaced
+             (`chip_smoke.kitti_config`: asynchronous window BA), with
+             `--checkpoint-every chip_smoke.CLI_CKPT_EVERY`. Prints each
+             run's summary line with the frontend's discards and
+             relocalizations.
 On the CPU the JAX frontend would track with `lk.track`; the TPU and the
 port run `lk_pallas` semantics, which differ from it near the image edge
 (ROADMAP.md Queue 3). So, as in tests/test_torch_frontend.py, LK is swapped
@@ -47,8 +57,12 @@ Imports JAX: it runs where the JAX package runs, never on the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import tempfile
 import time
 
 import jax
@@ -57,7 +71,8 @@ import numpy as np
 import torch
 
 import chip_smoke
-from chip_smoke import blackout_scale_ratio, non_black, with_blackout
+from chip_smoke import (blackout_scale_ratio, kitti_config, non_black,
+                        with_blackout, write_kitti_tree)
 from ya_vo_tpu.config import VOConfig
 from ya_vo_tpu.tracking import lk as jlk
 from ya_vo_tpu.tracking.frontend import Frontend
@@ -184,6 +199,51 @@ def refine(n_frames: int, tex_size: int) -> dict:
                 windows=len(windows), worst_windows=worst)
 
 
+def cli():
+    """The `cli` runs (module docstring): one dict a run."""
+    import run_vo
+    from ya_vo_tpu.tracking import frontend as jfrontend
+
+    made = []
+
+    class Recorded(jfrontend.Frontend):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def main(name, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_vo.main(argv)
+        fe = made[-1]
+        fe.finish()
+        return dict(run=name, rc=rc, seconds=time.perf_counter() - t0,
+                    summary=json.loads(buf.getvalue().splitlines()[-1]),
+                    ba_discarded=fe.n_ba_discarded,
+                    relocalizations=fe.n_relocalizations,
+                    asynchronous=fe.cfg.ba.asynchronous)
+
+    orig = jfrontend.Frontend
+    jfrontend.Frontend = Recorded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            yield main("cli_synthetic", ["--synthetic", "--traj",
+                                         os.path.join(tmp, "a.txt")])
+            seq = TexturedSequence(**chip_smoke.TEXTURED)
+            n = chip_smoke.CLI_N
+            base = os.path.join(tmp, "kitti")
+            write_kitti_tree(base, (np.array(seq.frame(f)) for f in range(n)),
+                             seq.cam, seq.poses[:n])
+            cfg = kitti_config(base, os.path.join(tmp, "kitti.json"))
+            yield main("cli_kitti", [
+                "--config", cfg, "--traj", os.path.join(tmp, "b.txt"),
+                "--checkpoint", os.path.join(tmp, "b.npz"),
+                "--checkpoint-every", str(chip_smoke.CLI_CKPT_EVERY)])
+    finally:
+        jfrontend.Frontend = orig
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", default="ba_off,ba_on,blackout,textured")
@@ -194,6 +254,10 @@ def main() -> None:
     stamps = synthetic.render_sequence(**chip_smoke.SEQ)
     jlk.auto_track = tpu_semantics_lk
     for name in args.runs.split(","):
+        if name == "cli":
+            for out in cli():
+                print(json.dumps(out), flush=True)
+            continue
         if name == "refine":
             print(json.dumps(refine(args.refine_frames, args.refine_tex)),
                   flush=True)

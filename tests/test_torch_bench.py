@@ -5,7 +5,8 @@
 the chain, the map, the host mirrors and the counters stay bit for bit as
 they were, and the frames after them track exactly as without them.
 `ya_vo_tpu_torch.bench.run_bench` at a tiny size gives one JSON line with
-every key of `bench.py`'s, and a selfcheck that does not pass zeroes the
+every key of `bench.py`'s (the stamps secondary's included), rounded as
+`bench.py` rounds them, and a selfcheck that does not pass zeroes the
 headline.
 """
 
@@ -29,7 +30,7 @@ BENCH_KEYS = {
     "ate_reps", "resets", "resets_reps", "ba_discarded_reps",
     "production_gates", "device_step_ms", "fps_device", "n_steps",
     "ate_refined_m", "selfcheck", "redone_reps", "ba_runs_reps", "card",
-    "device", "stamps_secondary"}
+    "device", "stamps_fps", "stamps_ate_m"}
 
 
 @pytest.fixture(scope="module")
@@ -110,7 +111,8 @@ def test_probe_needs_a_track_chain(frames):
 @pytest.fixture(scope="module")
 def bench_run():
     """run_bench at 188x620 (the KITTI camera halved), 14 frames, one rep,
-    a 512-texel atlas, on the CPU, with a selfcheck that fails."""
+    a 512-texel atlas, the stamps secondary over 9 frames (6 warm), on the
+    CPU, with a selfcheck that fails."""
     calls = []
 
     def selfcheck():
@@ -122,7 +124,7 @@ def bench_run():
                         185.2157 * s)
     out = bench.run_bench(n_frames=14, reps=1, height=188, width=620,
                           cam=cam, device="cpu", tex_size=512, probe_steps=2,
-                          selfcheck=selfcheck)
+                          stamps_frames=9, selfcheck=selfcheck)
     return out, calls
 
 
@@ -135,8 +137,22 @@ def test_bench_prints_one_line_with_every_key(bench_run):
     assert out["timed_frames"] == 14 - bench.WARM
     assert out["fps_reps"][0] > 0 and out["n_steps"] == 2
     assert np.isfinite(out["ate_raw_m"]) and np.isfinite(out["ate_refined_m"])
-    assert out["stamps_secondary"].startswith("not run")
+    assert out["stamps_fps"] > 0 and np.isfinite(out["stamps_ate_m"])
     assert out["device"] == "cpu" and out["card"] == "none (cpu)"
+
+
+def test_bench_rounds_as_bench_py(bench_run):
+    """frames/s to 2 places, ATE to 4, render ms to 1, the headline and
+    vs_baseline to 3 (bench.py:313-333, 355-356)."""
+    out, _ = bench_run
+    places = {"fps_min": 2, "fps_max": 2, "stamps_fps": 2,
+              "device_step_ms": 2, "fps_device": 2, "render_ms_per_frame": 1,
+              "ate_raw_m": 4, "ate_refined_m": 4, "stamps_ate_m": 4,
+              "value": 3, "vs_baseline": 3}
+    for k, n in places.items():
+        assert out[k] == round(out[k], n), (k, out[k])
+    for k, n in (("fps_reps", 2), ("ate_reps", 4)):
+        assert out[k] == [round(x, n) for x in out[k]], (k, out[k])
 
 
 def test_failing_selfcheck_zeroes_the_value(bench_run):

@@ -41,6 +41,12 @@ from ya_vo_tpu_torch.utils import convert
 from ya_vo_tpu_torch.utils import synthetic as tsynthetic
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The suite runs in several pytest-xdist workers on one machine, and each
+# imports this module while collecting. torch's default of one OpenMP
+# thread a core in every worker oversubscribes the cores, and the spinning
+# thread teams then slowed single port tests from seconds to minutes (six
+# workers: 8.5 s -> 512 s for one test): one intra-op thread a worker.
+torch.set_num_threads(1)
 SEQ = dict(n_frames=10, n_landmarks=500, height=256, width=768, step=0.4,
            yaw_rate=0.004, seed=7)
 SNAPS = (1, 5)   # JAX states after the bootstrap and after frame 5
@@ -239,16 +245,19 @@ def test_one_fused_step_from_jax_state(reference):
 
 
 def test_unsupported_configs_raise(monkeypatch):
-    """VOConfig() builds (sync window BA, push apply, one device); the
-    options outside the port raise, each naming its ROADMAP item."""
+    """VOConfig() builds (sync window BA, push apply, one device), and so
+    does asynchronous window BA; the options outside the port raise, each
+    naming its ROADMAP item."""
     cam = tsynthetic.kitti_camera()
     base = make_config()
     create_frontend(VOConfig(), cam, device="cpu")
     ba = VOConfig().ba
-    for field, value in (("asynchronous", True), ("apply_mode", "device")):
-        with pytest.raises(NotImplementedError, match=field):
-            create_frontend(VOConfig(ba=dataclasses.replace(
-                ba, **{field: value})), cam, device="cpu")
+    fe = create_frontend(VOConfig(ba=dataclasses.replace(
+        ba, asynchronous=True)), cam, device="cpu")
+    assert fe.cfg.ba.asynchronous
+    with pytest.raises(NotImplementedError, match="apply_mode"):
+        create_frontend(VOConfig(ba=dataclasses.replace(
+            ba, apply_mode="device")), cam, device="cpu")
     with pytest.raises(NotImplementedError, match="lk_template"):
         create_frontend(dataclasses.replace(base, tracking=dataclasses.replace(
             base.tracking, lk_template="anchor")), cam, device="cpu")
@@ -290,16 +299,19 @@ def test_tf32_off():
 
 def test_port_runs_without_jax():
     """Every module of the port (window BA, the textured renderer, offline
-    refinement, the selfcheck and the bench included) and chip_smoke.py
-    imported, VOConfig() unmodified run for four frames and refined
-    offline, and a textured frame rendered, in a fresh interpreter: no JAX
-    and nothing of the JAX package is loaded."""
+    refinement, the selfcheck, the bench, the CLI, its I/O, checkpoint and
+    viewers included) and chip_smoke.py imported, VOConfig() unmodified
+    run for four frames and refined offline, and a textured frame
+    rendered, in a fresh interpreter: no JAX and nothing of the JAX
+    package is loaded."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import chip_smoke, ya_vo_tpu_torch\n"
         "import ya_vo_tpu_torch.ba.window, ya_vo_tpu_torch.ba.global_refine\n"
         "import ya_vo_tpu_torch.utils.scene, ya_vo_tpu_torch.selfcheck\n"
-        "import ya_vo_tpu_torch.bench\n"
+        "import ya_vo_tpu_torch.bench, ya_vo_tpu_torch.run_vo\n"
+        "import ya_vo_tpu_torch.io.kitti, ya_vo_tpu_torch.utils.checkpoint\n"
+        "import ya_vo_tpu_torch.viz.render, ya_vo_tpu_torch.viz.live\n"
         "for m in pkgutil.walk_packages(ya_vo_tpu_torch.__path__,\n"
         "                               'ya_vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

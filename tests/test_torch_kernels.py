@@ -452,3 +452,46 @@ def test_build_is_keyed_by_sources():
         "fast_score.cu", "fast_select.cu", "hamming.cu", "lk_level.cu"]
     assert [f"{k}.cu" for k in _build.KERNELS] == sorted(
         p.name for p in _build.CSRC.glob("*.cu"))
+
+
+def _backend_vs_default_stream(device):
+    """A window problem of the stamps world's first 12 frames at
+    VOConfig() with asynchronous BA, built while the card's default stream
+    is still busy (a ~0.1 s spin queued ahead of the problem's uploads),
+    solved by the frontend's backend worker on its own stream after the
+    frontend stream's event, then on the calling thread's stream. Returns
+    both ((poses, landmarks), ms) and the worker's stream."""
+    import dataclasses
+
+    imgs, *_, cam = synthetic.render_sequence(
+        **dict(synthetic.STAMPS, n_frames=12))
+    cfg = VOConfig()
+    cfg = dataclasses.replace(cfg, ba=dataclasses.replace(
+        cfg.ba, asynchronous=True))
+    fe = create_frontend(cfg, cam, device=device)
+    for img in imgs:
+        fe.process(img)
+    fe.finish()
+    ready = None
+    if fe.device.type == "cuda":
+        torch.cuda._sleep(200_000_000)
+    job = fe._build_window_problem()
+    assert job is not None
+    if fe.device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record()
+    side = fe._ba_executor.submit(fe._solve_on_backend, job[0], ready)
+    return side.result(timeout=120), fe._solve(job[0]), fe._ba_stream
+
+
+@pytest.mark.cuda
+def test_backend_stream_solve_equals_default_stream(cuda):
+    """Asynchronous window BA solves on a side stream from the worker
+    thread; the solve is bit-reproducible, so the side-stream result equals
+    the default-stream one bit for bit (a missing wait on the frontend
+    stream's event would read the problem before its uploads landed)."""
+    (side, _), (default, _), stream = _backend_vs_default_stream(cuda)
+    assert stream is not None and stream != torch.cuda.default_stream()
+    for a, b in zip(side, default):
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))

@@ -3,6 +3,7 @@ the Pallas kernel's `lk_pallas.track` in interpret mode: same seeded
 inputs, uv atol 1e-3 px, status equal. One interpret-mode call is shared
 by the module (it takes seconds per call)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +61,42 @@ def test_track_matches_pallas_interpret(case):
     np.testing.assert_allclose(out.residual.numpy(), np.asarray(ref.residual),
                                rtol=1e-4, atol=1e-3)
     assert out.status.sum() >= 10
+
+
+def test_track_matches_pallas_v3_interpret(case, monkeypatch):
+    """The same inputs through the TPU kernel's other body,
+    `_lk_level_kernel_batched` (`YA_VO_LK_KERNEL=v3`, read when
+    `lk_pallas.track` is traced, so the jit caches are cleared around the
+    call), against the port's LK, which computes the same level: uv atol
+    1e-3 px, status equal, residual rtol 1e-4 (as for the default body)."""
+    imgs, uv0, seed, mask, ref_v2 = case
+    traced = []
+    body = lk_pallas._lk_level_kernel_batched
+
+    def batched(*args, **kw):
+        traced.append(kw)
+        return body(*args, **kw)
+
+    monkeypatch.setattr(lk_pallas, "_lk_level_kernel_batched", batched)
+    monkeypatch.setenv("YA_VO_LK_KERNEL", "v3")
+    jax.clear_caches()
+    try:
+        ref = lk_pallas.track(jnp.asarray(imgs[0]), jnp.asarray(imgs[1]),
+                              jnp.asarray(uv0), jnp.asarray(seed),
+                              jnp.asarray(mask))
+        ref = jax.tree_util.tree_map(np.asarray, ref)
+    finally:
+        jax.clear_caches()      # later calls trace the default body again
+    assert traced, "the v3 body was not traced"
+    out = _port(case)
+    np.testing.assert_allclose(out.uv.numpy(), ref.uv, atol=1e-3)
+    np.testing.assert_array_equal(out.status.numpy(), ref.status)
+    np.testing.assert_allclose(out.residual.numpy(), ref.residual,
+                               rtol=1e-4, atol=1e-3)
+    assert out.status.sum() >= 10
+    # the two bodies agree with each other as closely
+    np.testing.assert_allclose(ref.uv, np.asarray(ref_v2.uv), atol=1e-3)
+    np.testing.assert_array_equal(ref.status, np.asarray(ref_v2.status))
 
 
 def test_dead_slots_and_clamps(case):

@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's numpy modules (`config`,
 `worldmap/mapstore`, `viz/evaluation`) against the originals: the same
 defaults and loaded configs, the same map-store arrays after one seeded
-sequence of operations, and the same trajectory metrics, exactly."""
+sequence of operations, and the same trajectory metrics, exactly. The
+copies of `io/prefetch`, `io/native_loader`, `viz/render` and `viz/live`
+are the originals' text, up to their one import of the package."""
 
 import dataclasses
 import os
@@ -107,3 +109,22 @@ def test_evaluation_equal(metric):
     t, j = metric(tevaluation, est, gt), metric(jevaluation, est, gt)
     np.testing.assert_array_equal(np.asarray(t), np.asarray(j))
     assert np.all(np.isfinite(np.asarray(t)))
+
+
+@pytest.mark.parametrize("module,import_line", [
+    ("io/prefetch.py", None),
+    ("io/native_loader.py", None),
+    ("viz/live.py", None),
+    ("viz/render.py", "from ya_vo_tpu.viz.evaluation import"),
+])
+def test_copied_modules_equal(module, import_line):
+    with open(os.path.join(REPO, "ya_vo_tpu", module)) as fp:
+        orig = fp.read()
+    with open(os.path.join(REPO, "ya_vo_tpu_torch", module)) as fp:
+        copy = fp.read()
+    if import_line is not None:
+        assert orig.count(import_line) == 1
+        orig = orig.replace(import_line, import_line.replace(
+            "ya_vo_tpu.", "ya_vo_tpu_torch."))
+    assert copy == orig
+    assert "ya_vo_tpu." not in copy

@@ -27,13 +27,21 @@ Guard: `value` is 0 unless `ate_raw_m < 0.5` and the selfcheck says
 "pass". `vs_baseline` divides by the C++ reference's frames/s measured on a
 CPU (`native/refbench/BASELINE_MEASURED.json`, not a TPU figure).
 
-`bench.py`'s stamps secondary pins `ba.asynchronous=True`, which the port
-does not run yet (ROADMAP.md Queue 1, item 8); it is reported as not run.
+The stamps secondary, as `bench.py:181-222`: the 40-frame stamps world
+(`synthetic.STAMPS`: 1,200 landmarks, corridor, seed 11) at 376x1241 with
+2048 keypoints, softened gates (`min_ba_inliers=20`, `min_flow_inliers=5`)
+and asynchronous window BA; 6 frames through `process`, `precompile()`,
+then the timed `fe.run` of the other 34, which ends by draining the
+backend. It reports `stamps_fps` and `stamps_ate_m`.
+
+Numbers are rounded as `bench.py` rounds them: frames/s to 2 places,
+ATE to 4, render ms to 1, `value` and `vs_baseline` to 3.
 `run_bench` takes the sizes as arguments, so a CPU test can call it small.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -46,14 +54,15 @@ import torch
 
 from ya_vo_tpu_torch import create_frontend
 from ya_vo_tpu_torch.ba.global_refine import global_refine
-from ya_vo_tpu_torch.config import VOConfig
+from ya_vo_tpu_torch.config import FeatureConfig, TrackConfig, VOConfig
 from ya_vo_tpu_torch.selfcheck import card_line
+from ya_vo_tpu_torch.utils import synthetic
 from ya_vo_tpu_torch.utils.scene import TexturedSequence
 from ya_vo_tpu_torch.viz import evaluation
 
 REPO = Path(__file__).resolve().parent.parent
 N_FRAMES, WARM, REPS = 410, 8, 3
-STAMPS_SECONDARY = "not run: ba.asynchronous is ROADMAP Queue 1 item 8"
+STAMPS_WARM = 6
 _T0 = time.perf_counter()
 
 
@@ -109,12 +118,44 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def stamps_secondary(device: torch.device, n_frames: int, height: int,
+                     width: int) -> dict:
+    """The stamps secondary (module docstring): frames/s of the timed
+    frames and ATE_sim3 over all of them."""
+    imgs, poses_gt, _, cam = synthetic.render_sequence(
+        **dict(synthetic.STAMPS, n_frames=n_frames, height=height,
+               width=width))
+    cfg = VOConfig(image_height=height, image_width=width,
+                   features=FeatureConfig(max_keypoints=2048),
+                   tracking=TrackConfig(min_ba_inliers=20,
+                                        min_flow_inliers=5))
+    cfg = dataclasses.replace(cfg, ba=dataclasses.replace(
+        cfg.ba, asynchronous=True))
+    fe = create_frontend(cfg, cam, device=device)
+    for img in imgs[:STAMPS_WARM]:
+        fe.process(img)
+    fe.precompile()
+    _sync(device)
+    t0 = time.perf_counter()
+    fe.run(imgs[STAMPS_WARM:])
+    _sync(device)
+    dt = time.perf_counter() - t0
+    ate = evaluation.ate_rmse(np.stack(fe.trajectory),
+                              np.linalg.inv(poses_gt), with_scale=True)
+    _log(f"stamps secondary: {(n_frames - STAMPS_WARM) / dt} frames/s, "
+         f"ate_sim3={ate}, ba_runs={fe.n_ba_runs}, ba_discarded="
+         f"{fe.n_ba_discarded}, ba_deferred={fe.n_ba_deferred}")
+    return {"stamps_fps": round((n_frames - STAMPS_WARM) / dt, 2),
+            "stamps_ate_m": round(float(ate), 4)}
+
+
 def run_bench(n_frames: int = N_FRAMES, reps: int = REPS, height: int = 376,
               width: int = 1241, cam=None, device="cuda",
               tex_size: int = 2048, probe_steps: int = 200,
-              selfcheck=run_selfcheck) -> dict:
+              stamps_frames: int = 40, selfcheck=run_selfcheck) -> dict:
     """The primary run and its extras; returns the JSON line's dict.
-    `cam` defaults to the KITTI camera; `selfcheck` is called with no
+    `cam` defaults to the KITTI camera; the stamps secondary renders
+    `stamps_frames` frames at the same size; `selfcheck` is called with no
     arguments after the runs and returns the selfcheck's status."""
     device = torch.device(device)
     seq = TexturedSequence(n_frames=n_frames, height=height, width=width,
@@ -166,33 +207,35 @@ def run_bench(n_frames: int = N_FRAMES, reps: int = REPS, height: int = 376,
         "unit": "frames/s",
         "vs_baseline": 0.0,
         "reps": reps,
-        "fps_reps": fps,
-        "fps_min": min(fps),
-        "fps_max": max(fps),
+        "fps_reps": [round(x, 2) for x in fps],
+        "fps_min": round(min(fps), 2),
+        "fps_max": round(max(fps), 2),
         "timed_frames": n_frames - WARM,
-        "render_ms_per_frame": render_ms,
-        "ate_raw_m": ate_raw,
-        "ate_reps": ate,
+        "render_ms_per_frame": round(render_ms, 1),
+        "ate_raw_m": round(ate_raw, 4),
+        "ate_reps": [round(x, 4) for x in ate],
         "resets": int(max(resets)),
         "resets_reps": resets,
         "ba_discarded_reps": discards,
         "redone_reps": redone,
         "ba_runs_reps": ba_runs,
         "production_gates": True,
-        **probe,
+        **{k: round(v, 2) if isinstance(v, float) else v
+           for k, v in probe.items()},
     }
     _log("offline refine")
     traj = global_refine(fe)
-    out["ate_refined_m"] = float(evaluation.ate_rmse(traj, gt_cw,
-                                                     with_scale=True))
-    out["stamps_secondary"] = STAMPS_SECONDARY
-    del fe, seq, rend           # free the card for the selfcheck's process
-    if device.type == "cuda":
+    out["ate_refined_m"] = round(float(evaluation.ate_rmse(
+        traj, gt_cw, with_scale=True)), 4)
+    del fe, seq, rend
+    _log("stamps secondary")
+    out.update(stamps_secondary(device, stamps_frames, height, width))
+    if device.type == "cuda":   # free the card for the selfcheck's process
         torch.cuda.empty_cache()
     _log("selfcheck")
     out["selfcheck"] = selfcheck()
-    out["value"], out["vs_baseline"] = score(fps_med, ate_raw,
-                                             out["selfcheck"])
+    out["value"], out["vs_baseline"] = (
+        round(x, 3) for x in score(fps_med, ate_raw, out["selfcheck"]))
     out["card"] = (card_line() if device.type == "cuda"
                    else f"none ({device.type})")
     out["device"] = (torch.cuda.get_device_name(device)

@@ -6,11 +6,13 @@ per-frame tracking step (FAST + BRIEF extraction, then the state-dependent
 body: projection-seeded LK from the previous frame, robust pose GN,
 speculative replenishment against the anchor keyframe and the on-device
 keyframe decision and track-table merge), the host replay of each frame's
-record into the numpy `MapStore`, the synchronous sliding-window BA with
-its divergence gate and push apply, the reset path (PnP relocalization
-against the surviving map, else the unit-scale two-view bootstrap chained
-on the last pose), and the pipelined driver with its redo of in-flight
-frames after a state push.
+record into the numpy `MapStore`, the sliding-window BA with its
+divergence gate and push apply (synchronous, or asynchronous on a backend
+thread with the staleness gate and its slow-host backoff), the reset path
+(PnP relocalization against the surviving map, else the unit-scale
+two-view bootstrap chained on the last pose), the pipelined driver with
+its redo of in-flight frames after a state push, and the per-frame
+observers (`observers`, e.g. `viz.live.attach`).
 
 Tracking state lives as tensors on `device`. Each frame's record is copied
 with `non_blocking` copies into pinned host memory behind a CUDA event, so
@@ -18,13 +20,23 @@ the host resolves a frame `pipeline_depth - 1` frames after dispatching it
 without stalling the card. When a resolve rebuilds host state (bootstrap,
 reset, relocalization, BA apply), the state is pushed and every in-flight
 frame is re-dispatched against it, reusing its extraction: the pipelined
-driver's results are the synchronous driver's, bit for bit. Options
-outside the port raise `NotImplementedError` instead of running a partial
-version.
+driver's results are the synchronous driver's, bit for bit.
+
+Asynchronous window BA (`ba.asynchronous`) solves on one worker thread.
+On the card that thread issues the solve on a CUDA stream of its own,
+after waiting on an event recorded on the frontend's stream where the
+window problem was built; the result reaches the host (numpy) inside the
+worker, so the frontend thread never waits on the backend stream. The
+problem's tensors stay referenced by the pending job until its result has
+been read. A solve that raises is logged and dropped.
+
+Options outside the port raise `NotImplementedError` instead of running a
+partial version.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import enum
 import logging
@@ -88,10 +100,6 @@ def _check_supported(config: VOConfig) -> None:
                          f"this pipeline is monocular")
     ba = config.ba
     if ba.enabled:
-        if ba.asynchronous:
-            raise NotImplementedError(
-                f"asynchronous window BA (ba.asynchronous=True) is "
-                f"{_not_yet(8)}")
         if ba.apply_mode != "push":
             raise NotImplementedError(
                 f"ba.apply_mode={ba.apply_mode!r} is {_not_yet(9)}")
@@ -171,6 +179,9 @@ class Frontend:
         self._frames_since_kf = 0
         self.trajectory: List[np.ndarray] = []
         self.results: List[FrameResult] = []
+        # per-frame callbacks (result) -> None, fired by _emit on the sync
+        # and pipelined drivers (e.g. viz.live.attach)
+        self.observers: List = []
 
         # window BA state
         self.n_ba_runs = 0
@@ -187,6 +198,19 @@ class Frontend:
         self._session_epoch = 0       # bumped when keyframe slots shift
         self._resolved_fid = 0        # newest frame id resolved on the host
         self.n_redone = 0             # in-flight dispatches redone
+        # asynchronous BA: one backend worker, at most one solve in flight
+        # (`_ba_pending`), a window deferred while it runs, and the
+        # staleness backoff (consecutive staleness discards widen the
+        # gate by `_stale_relax`)
+        self._ba_executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ba-backend")
+        self._ba_stream = (torch.cuda.Stream(self.device)
+                           if self.device.type == "cuda" else None)
+        self._ba_pending: Optional[dict] = None
+        self._ba_deferred = False
+        self.n_ba_deferred = 0        # windows deferred behind a solve
+        self._consec_stale_discards = 0
+        self._stale_relax = 0
 
         # device-resident tracking state (see _push_state_to_device)
         dev = self.device
@@ -211,6 +235,9 @@ class Frontend:
         # dispatch
         self._state_dirty = False
         self._pending_q: deque = deque()
+        if config.ba.enabled and config.ba.asynchronous:
+            # warm the solver's first launches on the backend stream
+            self._ba_executor.submit(self._precompile_window_ba)
 
     # ------------------------------------------------------------------ #
     def _to_device(self, img) -> torch.Tensor:
@@ -397,10 +424,27 @@ class Frontend:
         self._d_slot_stamp = torch.zeros_like(self._d_slot_stamp)
         self._state_dirty = False
 
+    def sync_host_state(self) -> None:
+        """Copy the device track table into the host mirrors (before a
+        checkpoint)."""
+        self.track_uv = self._np(self._d_track_uv).copy()
+        self.track_valid = self._np(self._d_track_valid).copy()
+
+    def _emit(self, res: FrameResult) -> None:
+        """Record a finished frame and notify the observers; an observer's
+        exception is logged and never stops tracking."""
+        self.results.append(res)
+        for cb in self.observers:
+            try:
+                cb(res)
+            except Exception:
+                _log.exception("frame observer failed")
+
     # ------------------------------------------------------------------ #
     def process(self, img) -> FrameResult:
         """Feed one grayscale frame, fully synchronously."""
         self.frame_id += 1
+        self._poll_ba()
         return self._process_sync(self._to_device(img))
 
     def _process_sync(self, img_dev: torch.Tensor) -> FrameResult:
@@ -428,7 +472,7 @@ class Frontend:
         self.last_img = img_dev
         self.last_kp, self.last_desc = kp, desc
         self.trajectory.append(self.last_pose.copy())
-        self.results.append(res)
+        self._emit(res)
         return res
 
     def _handle_init(self, img, kp, desc) -> FrameResult:
@@ -649,33 +693,137 @@ class Frontend:
                         "ba": self._last_ba_ms if is_kf else 0.0})
 
     # ------------------------------------------------------------------ #
-    def _run_window_ba(self) -> None:
-        """Synchronous sliding-window BA over the active keyframe window
-        every `every_n_keyframes` keyframes; the result is applied through
-        `_apply_ba_result`."""
+    def _run_window_ba(self, force: bool = False) -> None:
+        """Sliding-window BA over the active keyframe window every
+        `every_n_keyframes` keyframes, applied through `_apply_ba_result`:
+        at once when synchronous; asynchronously, submitted to the backend
+        worker and applied by `_poll_ba`. `force` (the deferred re-launch)
+        skips the keyframe cadence."""
         bc = self.cfg.ba
         if not bc.enabled or self.map.n_keyframes < bc.min_keyframes:
             return
-        self._kf_since_ba += 1
-        if self._kf_since_ba < bc.every_n_keyframes:
-            return
-        self._kf_since_ba = 0
+        if not force:
+            self._kf_since_ba += 1
+            if self._kf_since_ba < bc.every_n_keyframes:
+                return
+            self._kf_since_ba = 0
+        if bc.asynchronous and self._ba_pending is not None:
+            n_behind = self.map.kf_stamp_counter - self._ba_pending["kf_stamp"]
+            if n_behind >= bc.max_stale_keyframes and not force:
+                # the backend is a whole staleness window behind: wait for
+                # the solve in flight and apply it now, its staleness
+                # discard lifted up to this distance
+                _log.info(
+                    "async BA %d keyframes behind: blocking for the "
+                    "in-flight solve (sync-degraded cadence)", n_behind)
+                self._ba_pending["stale_floor"] = n_behind
+                concurrent.futures.wait([self._ba_pending["fut"]])
+                self._poll_ba()
+            if self._ba_pending is not None:
+                # one solve in flight at a time: re-launch on its
+                # completion with a fresh snapshot
+                self._ba_deferred = True
+                self.n_ba_deferred += 1
+                return
         job = self._build_window_problem()
         if job is None:
             return
         prob, slots, used, n_real = job
         self._last_ba_prob = prob
         anchor_old = self.map.kf_pose[slots[-1]].copy()
+        if bc.asynchronous:
+            ready = None
+            if self._ba_stream is not None:
+                ready = torch.cuda.Event()
+                ready.record()
+            self._ba_pending = dict(
+                fut=self._ba_executor.submit(self._solve_on_backend, prob,
+                                             ready),
+                prob=prob, slots=slots, used=used, n_real=n_real,
+                anchor_old=anchor_old, epoch=self._session_epoch,
+                kf_stamp=self.map.kf_stamp_counter,
+                lm_stamp=self.map.lm_stamp_counter)
+            return
+        (new_poses, new_lms), ms = self._solve(prob)
+        self.ba_ms.append(ms)
+        self._apply_ba_result(new_poses, new_lms, slots, used, n_real,
+                              anchor_old, ms)
+
+    def _solve(self, prob):
+        """One window solve on the current stream, read back to numpy:
+        ((poses, landmarks), wall ms)."""
+        bc = self.cfg.ba
         t0 = time.perf_counter()
         res = ba_window.solve_window(
             prob, self.cam, iters=bc.iters, huber_delta=bc.huber_delta,
             damping=bc.damping, n_fixed_poses=2,
             pose_prior_weight=bc.pose_prior_weight)
-        new_poses, new_lms = self._np(res.poses), self._np(res.landmarks)
-        ms = (time.perf_counter() - t0) * 1e3
-        self.ba_ms.append(ms)
-        self._apply_ba_result(new_poses, new_lms, slots, used, n_real,
-                              anchor_old, ms)
+        out = (self._np(res.poses), self._np(res.landmarks))
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def _backend_stream(self):
+        """The worker's launch context: the backend stream on the card (the
+        current stream is per thread, so the worker enters it itself)."""
+        if self._ba_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._ba_stream)
+
+    def _solve_on_backend(self, prob, ready):
+        """The worker's solve, on the backend stream once the frontend
+        stream has reached `ready` (the problem's uploads)."""
+        with self._backend_stream():
+            if ready is not None:
+                self._ba_stream.wait_event(ready)
+            return self._solve(prob)
+
+    def _precompile_window_ba(self) -> None:
+        """Warm the solver on the backend (its first cuBLAS/cuSOLVER calls
+        on the backend stream) with an all-invalid problem of the session's
+        window shapes; runs on the worker at construction."""
+        try:
+            bc = self.cfg.ba
+            W, L = self.cfg.map.window_size, bc.max_window_landmarks
+            O = self.map.max_obs_per_kf
+            with self._backend_stream():
+                dev = self.device
+                prob = ba_window.BAProblem(
+                    poses=torch.eye(4, device=dev).repeat(W, 1, 1),
+                    pose_valid=torch.ones(W, dtype=torch.bool, device=dev),
+                    landmarks=torch.zeros((L, 3), device=dev),
+                    lm_valid=torch.zeros(L, dtype=torch.bool, device=dev),
+                    obs_uv=torch.zeros((W, O, 2), device=dev),
+                    obs_lm=torch.full((W, O), -1, dtype=torch.int64,
+                                      device=dev),
+                    obs_valid=torch.zeros((W, O), dtype=torch.bool,
+                                          device=dev))
+                self._solve(prob)
+        except Exception:
+            _log.exception("window-BA warm-up on the backend failed")
+
+    def _poll_ba(self) -> None:
+        """Apply a finished backend solve (frontend thread), then re-launch
+        a deferred window. A solve that raised is logged and dropped; a
+        result from before a keyframe-slot shift (`_session_epoch`) is
+        dropped."""
+        p = self._ba_pending
+        if p is None or not p["fut"].done():
+            return
+        self._ba_pending = None
+        try:
+            (new_poses, new_lms), ms = p["fut"].result()
+        except Exception:
+            _log.exception("backend BA solve failed")
+        else:
+            self.ba_ms.append(ms)
+            if p["epoch"] == self._session_epoch:
+                self._apply_ba_result(
+                    new_poses, new_lms, p["slots"], p["used"], p["n_real"],
+                    p["anchor_old"], ms, kf_stamp_snap=p["kf_stamp"],
+                    lm_stamp_snap=p["lm_stamp"],
+                    stale_floor=p.get("stale_floor", 0))
+        if self._ba_deferred:
+            self._ba_deferred = False
+            self._run_window_ba(force=True)
 
     def _build_window_problem(self, min_keyframes: Optional[int] = None):
         """Snapshot the active window into a fixed-shape, landmark-compacted
@@ -734,15 +882,41 @@ class Frontend:
         return prob, slots, used, n_real
 
     def _apply_ba_result(self, new_poses, new_lms, slots, used, n_real,
-                         anchor_old, ms) -> None:
-        """Apply a synchronous solve: the finite check and the divergence
-        gate, then write back the window's poses and landmarks, re-anchor
-        the live chain and the landmarks outside the window by the anchor
-        keyframe's correction, and mark the device state dirty (push)."""
+                         anchor_old, ms, kf_stamp_snap=None,
+                         lm_stamp_snap=None, stale_floor=0) -> None:
+        """Apply a solve: the finite check; for an asynchronous one
+        (`kf_stamp_snap` given) the staleness gate with its slow-host
+        backoff; the divergence gate; then write back the window's poses
+        and landmarks, move what was created after the snapshot and the
+        live landmarks outside the window by the anchor keyframe's
+        correction, re-anchor the live chain and mark the device state
+        dirty (push)."""
         new_poses = new_poses[:n_real]
         if not (np.all(np.isfinite(new_poses))
                 and np.all(np.isfinite(new_lms))):
             return
+        bc = self.cfg.ba
+        if kf_stamp_snap is not None:
+            n_stale = self.map.kf_stamp_counter - kf_stamp_snap
+            stale_limit = max(bc.max_stale_keyframes + self._stale_relax,
+                              stale_floor)
+            if n_stale > stale_limit:
+                self.n_ba_discarded += 1
+                self._consec_stale_discards += 1
+                _log.warning(
+                    "discarding async BA result: %d keyframes created since "
+                    "its snapshot (limit=%d)", n_stale, stale_limit)
+                if self._consec_stale_discards >= 3:
+                    # slow-host backoff: every solve outlives the window
+                    self._stale_relax += bc.max_stale_keyframes
+                    self._consec_stale_discards = 0
+                    _log.warning(
+                        "async BA: 3 consecutive staleness discards; "
+                        "widening the staleness window to %d",
+                        bc.max_stale_keyframes + self._stale_relax)
+                return
+            self._consec_stale_discards = 0
+            self._stale_relax = max(0, self._stale_relax - 1)
         # divergence gate: a correction of the anchor keyframe's camera
         # CENTRE by more than max_correction_steps (median) step lengths,
         # or a rotation past max_correction_rot_deg, means the solve
@@ -756,13 +930,13 @@ class Frontend:
                                       - _center(anchor_old)))
         cosang = (np.trace(corr_try[:3, :3]) - 1.0) / 2.0
         r_corr = float(np.degrees(np.arccos(np.clip(cosang, -1, 1))))
-        bc = self.cfg.ba
         if (t_corr > bc.max_correction_steps * max(step, 1e-3)
                 or r_corr > bc.max_correction_rot_deg):
             self.n_ba_discarded += 1
             _log.warning(
-                "discarding sync BA result: correction too large to apply "
-                "(|t|=%.3f vs step %.3f, rot=%.2f deg)", t_corr, step,
+                "discarding %s BA result: correction too large to apply "
+                "(|t|=%.3f vs step %.3f, rot=%.2f deg)",
+                "sync" if kf_stamp_snap is None else "async", t_corr, step,
                 r_corr)
             return
         self._last_ba_ms = ms
@@ -770,15 +944,41 @@ class Frontend:
 
         # write back, then re-anchor: T_live' = T_live anchor_old^-1 anchor_new
         self.map.update_keyframe_poses(slots, new_poses)
-        self.map.landmark_pos[used] = new_lms[: len(used)]
+        if lm_stamp_snap is not None:
+            # a slot killed and recycled since the snapshot holds another
+            # landmark now: leave it
+            same = (self.map.landmark_stamp[used] < lm_stamp_snap) \
+                & self.map.landmark_alive[used]
+            self.map.landmark_pos[used[same]] = new_lms[: len(used)][same]
+        else:
+            self.map.landmark_pos[used] = new_lms[: len(used)]
         corr = (np.linalg.inv(anchor_old) @ new_poses[-1]).astype(np.float32)
         inv_c = np.linalg.inv(corr)
-        # live-table landmarks outside the solve stay consistent with the
-        # corrected live pose by the same rigid move (X' = corr^-1 X)
+        # keyframes and landmarks created after the snapshot (by creation
+        # stamp) are still in the frame before the correction: move them
+        if kf_stamp_snap is not None:
+            sl = np.nonzero(
+                self.map.kf_stamp[: self.map.n_keyframes] >= kf_stamp_snap)[0]
+            if sl.size:
+                self.map.kf_pose[sl] = self.map.kf_pose[sl] @ corr
+        if lm_stamp_snap is not None:
+            hwm = self.map.n_landmarks
+            fresh = np.nonzero(
+                (self.map.landmark_stamp[:hwm] >= lm_stamp_snap)
+                & self.map.landmark_alive[:hwm])[0]
+            if fresh.size:
+                pts = self.map.landmark_pos[fresh]
+                self.map.landmark_pos[fresh] = (pts @ inv_c[:3, :3].T
+                                                + inv_c[:3, 3])
+        # live-table landmarks neither solved nor created after the
+        # snapshot stay consistent with the corrected live pose by the
+        # same rigid move (X' = corr^-1 X)
         upd = np.zeros(self.map.max_landmarks, bool)
         upd[used] = True
         tl = np.maximum(self.track_lm, 0)
-        stranded = self.track_valid & (self.track_lm >= 0) & ~upd[tl]
+        snap_bound = lm_stamp_snap if lm_stamp_snap is not None else np.inf
+        stranded = (self.track_valid & (self.track_lm >= 0) & ~upd[tl]
+                    & (self.map.landmark_stamp[tl] < snap_bound))
         if stranded.any():
             idx = self.track_lm[stranded]
             pts = self.map.landmark_pos[idx]
@@ -992,6 +1192,7 @@ class Frontend:
             else:
                 self.process(current)
         self._pipe_flush()
+        self.finish()
         if not self.trajectory:
             return np.zeros((0, 4, 4), np.float32)
         return np.stack(self.trajectory)
@@ -1001,6 +1202,7 @@ class Frontend:
         frame once pipeline_depth frames are queued. Bootstrap frames drain
         the queue and run synchronously."""
         self.frame_id += 1
+        self._poll_ba()
         img_dev = self._to_device(img_dev)
         if (self.status != VOStatus.TRACKING or self.last_img is None
                 or self._kf_img is None):
@@ -1039,7 +1241,7 @@ class Frontend:
             if dirty:
                 self._push_state_to_device()
             self.trajectory.append(self.last_pose.copy())
-            self.results.append(res)
+            self._emit(res)
         finally:
             self.frame_id = fid
         if dirty and self._pending_q:
@@ -1087,7 +1289,7 @@ class Frontend:
                     self.last_kp = redo["kp"]
                     self.last_desc = redo["desc"]
                     self.trajectory.append(self.last_pose.copy())
-                    self.results.append(res2)
+                    self._emit(res2)
                 finally:
                     self.frame_id = fid
 
@@ -1138,11 +1340,7 @@ class Frontend:
         job = self._build_window_problem(min_keyframes=2)
         self.n_ba_lm_dropped = n_dropped
         if job is not None:
-            bc = self.cfg.ba
-            ba_window.solve_window(
-                job[0], self.cam, iters=bc.iters, huber_delta=bc.huber_delta,
-                damping=bc.damping, n_fixed_poses=2,
-                pose_prior_weight=bc.pose_prior_weight)
+            self._solve(job[0])
         self._sync()
 
     def device_throughput_probe(self, imgs, n_steps: int = 200) -> dict:
@@ -1169,6 +1367,10 @@ class Frontend:
                 "fps_device": n_steps / dt, "n_steps": n_steps}
 
     def finish(self) -> None:
-        """Resolve every frame still in flight (end of sequence). Window BA
-        is synchronous here, so there is no backend to drain."""
+        """End of sequence: resolve every frame still in flight, then drain
+        the backend (wait for the solve in flight and apply it, deferred
+        re-launches included)."""
         self._pipe_flush()
+        while self._ba_pending is not None:
+            concurrent.futures.wait([self._ba_pending["fut"]])
+            self._poll_ba()

@@ -58,7 +58,10 @@ def camera_from_numpy(cam) -> Camera:
     return Camera.create(*(float(np.asarray(c)) for c in cam[:4]))
 
 
-def _tensor(x, device):
+def tensor_from_numpy(x, device) -> torch.Tensor:
+    """A numpy array as the port keeps it on `device`: packed uint32
+    descriptors as their int32 bits, int32 counters and slot stamps as
+    int64."""
     a = np.array(x)
     if a.dtype == np.uint32:           # packed descriptors: same bits
         a = a.view(np.int32)
@@ -102,7 +105,8 @@ def frontend_state_from_numpy(fe, arrays: dict) -> None:
 
     dev = fe.device
     for k in DEVICE_KEYS:
-        setattr(fe, k, None if arrays[k] is None else _tensor(arrays[k], dev))
+        setattr(fe, k, None if arrays[k] is None
+                else tensor_from_numpy(arrays[k], dev))
     for k in HOST_KEYS:
         v = np.array(arrays[k])
         if k == "_recent_steps":
@@ -113,9 +117,9 @@ def frontend_state_from_numpy(fe, arrays: dict) -> None:
     for k in TENSOR_KEYS:
         v = arrays[k]
         if k.endswith("_kp"):
-            v = Keypoints(*(_tensor(x, dev) for x in v))
+            v = Keypoints(*(tensor_from_numpy(x, dev) for x in v))
         elif v is not None:
-            v = _tensor(v, dev)
+            v = tensor_from_numpy(v, dev)
         setattr(fe, k, v)
     fe.status = VOStatus[arrays["status"]]
     fe.map = mapstore_from_numpy(arrays["map"])
