@@ -23,8 +23,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      Hamming, `torch.topk` over the candidates' unique keys for the
      selection. Then the whole `fast.detect` call: equal to the CPU's in
      every slot, its device time (all device events of a call) and its
-     device events and kernel launches a call. The checks and their
-     tolerances are `ya_vo_tpu_torch/selfcheck.py`'s;
+     device events and kernel launches a call. Then K1 at each LK
+     template's inputs on the stamps world (`selfcheck.check_lk_templates`:
+     after the bootstrap, "anchor" tracks from the keyframe image to the
+     frame 4 frames on with absolute projection seeds, "prev" from it to
+     the next frame with the projected-motion seeds), level by level
+     against the plain version, with K1's device time and iterations under
+     each. The checks and their tolerances are
+     `ya_vo_tpu_torch/selfcheck.py`'s;
   4. main path: `create_frontend(cfg, cam, device="cuda").run(frames)` over
      the 40-frame stamps world at VOConfig() defaults with window BA off:
      0 resets, 2048 keypoints every tracked frame, the keyframes and
@@ -43,7 +49,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   6. reset path: the same frames with two black frames after frame 20, at
      VOConfig(): at least one reset and one PnP relocalization, tracking at
      the end, the step scale after the blackout within 5% of the scale
-     before it, ATE_sim3 over the real frames below 0.25;
+     before it, ATE_sim3 over the real frames below 0.25; run with
+     YA_VO_DUMP_RESET_DIR set (phase 11 (c));
   7. determinism: `solve_window` on phase 5's last window problem twice,
      bit-identical poses and landmarks; its device and call time;
   8. textured path: the renderer against the float64 tracer at 376x1241 on
@@ -72,17 +79,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (CLI_N, 12), the live viewer's /state.json at the last frame. (c) a
      fresh frontend loads the 60-frame checkpoint and processes frames
      60 on: ATE_sim3 within max(0.05, 2x) of (b)'s raw one. (d) the frames
-     of (b) with `asynchronous` false, for the frames/s of the two.
-Each of phases 4-6, 8 and the runs of 9 zeroes the launch counts just
-before its run, reads them just after, and fails unless every kernel ran
-in it. Prints a
+     of (b) with `asynchronous` false, for the frames/s of the two;
+ 10. long run: `ya_vo_tpu_torch.longrun` (tools/longrun.py's route,
+     q_max 128, VOConfig() unmodified, rendered on the card) over the
+     first LONG_N frames of its LONG_WORLD-frame route, past the first
+     keyframe eviction: at least one
+     eviction, no dropped landmark, a finite trajectory of LONG_N poses,
+     the KITTI round trip's ATE_sim3 equal to the run's at four digits,
+     ATE_sim3 under LONG_ATE_MAX; prints resets, the lifecycle counters,
+     rss_mb (the peak) and the host RSS before and after the phase,
+     frames/s and launches a frame;
+ 11. options: (a) phase 8's frames with `ba.apply_mode="device"`: no
+     redone dispatch but a reset's (at most pipeline_depth - 1 a reset),
+     at least one solve applied, resets at most DEVICE_RESETS_MAX and
+     ATE_sim3 under DEVICE_ATE_MAX,
+     frames/s beside phase 8's push apply; (b) the 40-frame stamps world
+     at VOConfig() with `lk_template="anchor"`, then with
+     `photometric_norm=True`: resets equal to the JAX reference's
+     (`port_jax_reference.py --runs options`), keyframes within
+     OPTION_KF_TOL of JAX's and ATE_sim3 under OPTION_ATE_FACTOR times
+     JAX's, K1 once a fresh or redone dispatch; the normalization's
+     device and call time on one frame; (c) phase 6's reset dumps:
+     one npz a reset, named by its frame, with the JAX package's keys.
+Each of phases 4-6, 8-11 zeroes the launch counts just before its run,
+reads them just after, and fails unless every kernel ran in it. Prints a
 JSON line with the kernels' results, then the card, then, as the last
 line, {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -97,10 +123,11 @@ import torch
 from ya_vo_tpu_torch import _build, create_frontend
 from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.ba import window as ba_window
-from ya_vo_tpu_torch.config import VOConfig
+from ya_vo_tpu_torch.config import VOConfig, with_option
 from ya_vo_tpu_torch.selfcheck import (bits_equal, card_line, check,
                                        device_ms, time_ms)
-from ya_vo_tpu_torch.tracking.frontend import detect_kwargs
+from ya_vo_tpu_torch.tracking.frontend import (detect_kwargs,
+                                               photometric_normalize)
 from ya_vo_tpu_torch.utils import synthetic
 from ya_vo_tpu_torch.utils.scene import TexturedSequence
 from ya_vo_tpu_torch.viz import evaluation
@@ -156,6 +183,45 @@ CLI_CKPT_EVERY = 60
 CLI_KITTI_ATE_MAX = 0.05   # the first card run: 0.0192 raw (JAX 0.0254)
 JAX_CLI_KITTI = dict(frames=120, resets=0, ba_runs=29, ba_discarded=0,
                      relocalizations=0, keyframes=61, ate_sim3_m=0.0254)
+# phase 10: the first LONG_N frames of `longrun`'s 1,900-frame route (the
+# world is built along the whole route), the first multiple of 100 past
+# frame 1027, where the 1,900-frame run on the card first evicted a
+# keyframe (docs/LONGRUN_TORCH.json, first_eviction_frame) at VOConfig()'s
+# max_keyframes=512
+LONG_WORLD, LONG_N = 1900, 1100
+LONG_ATE_MAX = 2.5    # the first card run: 1.1977 (2.1x margin)
+# phase 11: (a) the device apply's ATE_sim3 bound on phase 8's frames;
+# (b) the JAX package's frontend on the stamps world with one option each
+# (`port_jax_reference.py --runs options`, the CPU, LK with the TPU
+# kernel's semantics; its RANSAC draws are not the card's)
+# The bounds of (a), set from the readings of this world's 150 frames on
+# the card (`port_frames_ab.py --apply-mode . --warm 0 8`): 0.1144 and 1
+# reset from frame 0, as the phase runs (three calls), 1.2202 and 5
+# resets after 8 warm frames (five runs); 2x the larger of each. The
+# device apply's outcome follows float-level differences: the world's
+# seeds 1-3 read 1.33-14.3 m at 1-23 resets (push 0.023-0.040 at 0-1), so
+# the bounds hold this world only
+DEVICE_ATE_MAX = 2.5
+DEVICE_RESETS_MAX = 10
+# the JAX package's frontend with the device apply on its own render of
+# phase 8's frames (`port_jax_reference.py --runs textured_device`)
+JAX_TEXTURED_DEVICE = dict(ate_sim3=2.8194093861980036, resets=4,
+                           relocalizations=4, keyframes=90, ba_solves=27)
+JAX_OPTIONS = dict(
+    anchor=dict(ate_sim3=0.012515072736140569, resets=0, relocalizations=0,
+                keyframes=20, ba_solves=6),
+    photometric_norm=dict(ate_sim3=0.019339514175278242, resets=0,
+                          relocalizations=0, keyframes=20, ba_solves=6))
+# keyframes within 10% of JAX's; ATE_sim3 under 3x JAX's (the RANSAC draws
+# differ, so ATEs agree in size only: phase 5 reads 1.18x JAX's)
+OPTION_KF_TOL = 0.1
+OPTION_ATE_FACTOR = 3.0
+# the keys of the JAX package's reset dump (ya_vo_tpu/tracking/frontend.py
+# `_maybe_dump_reset`)
+RESET_DUMP_KEYS = ("frame_id", "n_flow", "n_ba", "pose", "last_pose",
+                   "rel_motion", "flow_ok", "gn_inlier", "keep", "track_uv",
+                   "track_lm", "track_valid", "anchor_uv", "lm_pos_dev",
+                   "lm_stamp", "lm_alive", "slot_stamp")
 KITTI_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "configs", "KITTI.json")
 
@@ -230,10 +296,18 @@ def blackout_scale_ratio(traj, gt_wc) -> float:
     return post / pre
 
 
-def path_launches(name: str) -> dict:
-    """The launch counts of the run just made; fails unless every kernel
-    ran in it."""
-    launches = dict(_build.LAUNCHES)
+def host_rss_mb() -> float:
+    """This process's resident host memory now (VmRSS), in MB."""
+    with open("/proc/self/status") as f:
+        kb = next(line for line in f if line.startswith("VmRSS")).split()[1]
+    return int(kb) / 1024
+
+
+def path_launches(name: str, launches: dict = None) -> dict:
+    """The launch counts of the run just made (`launches`, by default all
+    since the counts were last set to 0); fails unless every kernel ran in
+    it."""
+    launches = dict(_build.LAUNCHES if launches is None else launches)
     check(all(launches.values()),
           f"{name}: a kernel was not launched: {launches}")
     return launches
@@ -287,13 +361,23 @@ def run_production(frames, poses_gt, cam, card):
     return out, fe
 
 
-def run_reset(frames, poses_gt, cam, card):
-    """Phase 6: the blackout at VOConfig(), pipelined."""
+def run_reset(frames, poses_gt, cam, card, dump_dir=None):
+    """Phase 6: the blackout at VOConfig(), pipelined; with `dump_dir`,
+    the reset dumps go there (phase 11 (c))."""
     _build.reset_launches()
     fe = create_frontend(VOConfig(), cam, device="cuda")
     seq = with_blackout(frames)
+    old = os.environ.get("YA_VO_DUMP_RESET_DIR")
+    if dump_dir is not None:
+        os.environ["YA_VO_DUMP_RESET_DIR"] = dump_dir
     t0 = time.perf_counter()
-    traj = fe.run(seq, pipelined=True)
+    try:
+        traj = fe.run(seq, pipelined=True)
+    finally:
+        if old is None:
+            os.environ.pop("YA_VO_DUMP_RESET_DIR", None)
+        else:
+            os.environ["YA_VO_DUMP_RESET_DIR"] = old
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = path_launches("reset path")
@@ -314,6 +398,7 @@ def run_reset(frames, poses_gt, cam, card):
     check(launches["hamming"] >= n_disp + 1 + fe.n_relocalizations,
           f"reset: hamming launches {launches}")
     return dict(seconds=dt, frames=len(seq), resets=fe.n_resets,
+                reset_frames=[r.frame_id for r in fe.results if r.reset],
                 relocalizations=fe.n_relocalizations,
                 statuses_not_tracking={i: s for i, s in enumerate(statuses)
                                        if s != "TRACKING"},
@@ -388,6 +473,151 @@ def run_textured(card) -> dict:
                 launches_per_frame={k: v / n_fresh
                                     for k, v in launches.items()},
                 card=card)
+
+
+def run_long(card) -> dict:
+    """Phase 10: `longrun.run` over the first LONG_N frames of its route at
+    VOConfig(), 376x1241, rendered on the card."""
+    from ya_vo_tpu_torch import longrun
+
+    rss_before = host_rss_mb()
+    t0 = time.perf_counter()
+    # the counts of the timed window alone: not the warm frames, the
+    # precompile or the probe on copies of the device chain
+    rec, fe, launches = longrun.run(LONG_N, device="cuda",
+                                    world_frames=LONG_WORLD)
+    launches = path_launches("long run", launches)
+    traj = np.stack(fe.trajectory)
+    del fe
+    check(traj.shape == (LONG_N, 4, 4) and np.isfinite(traj).all(),
+          f"long run: trajectory shape {traj.shape} or not finite")
+    check(rec["evicted_keyframes"] >= 1,
+          f"long run: no keyframe evicted in {LONG_N} frames")
+    check(rec["dropped_landmarks"] == 0,
+          f"long run: {rec['dropped_landmarks']} landmarks dropped")
+    check(rec["kitti_roundtrip_frames"] == LONG_N
+          and rec["kitti_roundtrip_ate_sim3_m"] == rec["ate_sim3_m"],
+          f"long run: KITTI round trip {rec['kitti_roundtrip_frames']} "
+          f"frames, ATE_sim3 {rec['kitti_roundtrip_ate_sim3_m']} against "
+          f"{rec['ate_sim3_m']}")
+    check(np.isfinite(rec["ate_sim3_m"]), "long run: ATE_sim3 not finite")
+    if LONG_ATE_MAX is not None:
+        check(rec["ate_sim3_m"] < LONG_ATE_MAX,
+              f"long run: ATE_sim3 {rec['ate_sim3_m']}, bound "
+              f"{LONG_ATE_MAX}")
+    return dict(record=rec, seconds=time.perf_counter() - t0,
+                rss_mb_before=rss_before, rss_mb_after=host_rss_mb(),
+                launches=launches, card=card)
+
+
+def run_device_apply(card, push: dict) -> dict:
+    """Phase 11 (a): phase 8's frames with `ba.apply_mode="device"`,
+    against phase 8's push apply (`push`, its result)."""
+    cfg = with_option(VOConfig(), "ba", apply_mode="device")
+    seq = TexturedSequence(**TEXTURED, device="cuda")
+    _build.reset_launches()
+    fe = create_frontend(cfg, seq.cam, device="cuda")
+    t0 = time.perf_counter()
+    traj = fe.run((seq.frame(f) for f in range(TEXTURED_N)), pipelined=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = path_launches("device apply")
+    check(traj.shape == (TEXTURED_N, 4, 4) and np.isfinite(traj).all(),
+          f"device apply: trajectory shape {traj.shape} or not finite")
+    depth = cfg.tracking.pipeline_depth
+    check(fe.n_redone <= (depth - 1) * fe.n_resets,
+          f"device apply: {fe.n_redone} redone dispatches at "
+          f"{fe.n_resets} resets")
+    check(fe.n_resets <= DEVICE_RESETS_MAX,
+          f"device apply: {fe.n_resets} resets, bound {DEVICE_RESETS_MAX}")
+    check(fe.n_ba_runs >= 1, "device apply: no BA solve applied")
+    ate = evaluation.ate_rmse(traj, np.linalg.inv(seq.poses[:TEXTURED_N]),
+                              with_scale=True)
+    check(ate < DEVICE_ATE_MAX,
+          f"device apply: ATE_sim3 {ate}, bound {DEVICE_ATE_MAX}")
+    return dict(frames=TEXTURED_N, seconds=dt, frames_per_s=TEXTURED_N / dt,
+                push_frames_per_s=push["frames_per_s"], ate_sim3=ate,
+                push_ate_sim3=push["ate_sim3"], resets=fe.n_resets,
+                push_resets=push["resets"],
+                relocalizations=fe.n_relocalizations,
+                redone_dispatches=fe.n_redone,
+                push_redone_dispatches=push["redone_dispatches"],
+                keyframes=sum(r.is_keyframe for r in fe.results),
+                jax=JAX_TEXTURED_DEVICE,
+                ba_solves=fe.n_ba_runs, ba_discarded=fe.n_ba_discarded,
+                launches=launches,
+                launches_per_frame=_per_frame(launches, TEXTURED_N - 1),
+                card=card)
+
+
+# phase 11 (b): the option of each run, as (config section, its fields)
+OPTIONS = {"anchor": ("tracking", {"lk_template": "anchor"}),
+           "photometric_norm": ("features", {"photometric_norm": True})}
+
+
+def run_option(frames, poses_gt, cam, card, name: str) -> dict:
+    """Phase 11 (b): the stamps world at VOConfig() with the option
+    `name` set, pipelined, against the JAX reference's run."""
+    section, fields = OPTIONS[name]
+    cfg = with_option(VOConfig(), section, **fields)
+    _build.reset_launches()
+    fe = create_frontend(cfg, cam, device="cuda")
+    fe.run(frames[:2])                      # INIT + two-view bootstrap
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = fe.run(frames[2:], pipelined=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = path_launches(name)
+    check(traj.shape == (len(frames), 4, 4) and np.isfinite(traj).all(),
+          f"{name}: trajectory shape {traj.shape} or not finite")
+    ate = evaluation.ate_rmse(traj, np.linalg.inv(poses_gt),
+                              with_scale=True)
+    n_kf = sum(r.is_keyframe for r in fe.results)
+    n_tr = sum(r.status == "TRACKING" and r.frame_id >= 2
+               for r in fe.results)
+    # K1 once a fresh or redone dispatch (a reset frame is dispatched too)
+    n_disp = n_tr + fe.n_redone
+    check(launches["lk_level"] == n_disp if fe.n_resets == 0
+          else launches["lk_level"] >= n_disp,
+          f"{name}: lk launches {launches}, {n_tr} tracked frames and "
+          f"{fe.n_redone} redone")
+    jax = None if JAX_OPTIONS is None else JAX_OPTIONS[name]
+    if jax is not None:
+        check(fe.n_resets == jax["resets"],
+              f"{name}: {fe.n_resets} resets, JAX {jax['resets']}")
+        check(abs(n_kf - jax["keyframes"])
+              <= OPTION_KF_TOL * jax["keyframes"],
+              f"{name}: {n_kf} keyframes, JAX {jax['keyframes']}")
+        check(ate < OPTION_ATE_FACTOR * jax["ate_sim3"],
+              f"{name}: ATE_sim3 {ate}, JAX {jax['ate_sim3']}")
+    out = {}
+    if name == "photometric_norm":
+        # the normalization's own cost on one frame (plain PyTorch)
+        img = torch.as_tensor(frames[1]).cuda()
+        out["normalize"] = sc.call_costs(
+            lambda: photometric_normalize(img))
+    return dict(out, frames=len(frames), seconds=dt,
+                frames_per_s=(len(frames) - 2) / dt, ate_sim3=ate,
+                keyframes=n_kf, resets=fe.n_resets,
+                relocalizations=fe.n_relocalizations,
+                ba_solves=fe.n_ba_runs, ba_discarded=fe.n_ba_discarded,
+                redone_dispatches=fe.n_redone, jax=jax, launches=launches,
+                launches_per_frame=_per_frame(launches, n_tr), card=card)
+
+
+def check_reset_dumps(dump_dir: str, reset: dict) -> dict:
+    """Phase 11 (c): one npz a reset of phase 6, named by its frame, with
+    the JAX package's keys."""
+    names = sorted(os.listdir(dump_dir))
+    want = sorted(f"reset_f{f}.npz" for f in reset["reset_frames"])
+    check(names and names == want,
+          f"reset dumps: {names}, resets at {want}")
+    for name in names:
+        with np.load(os.path.join(dump_dir, name)) as z:
+            check(set(z.files) == set(RESET_DUMP_KEYS),
+                  f"reset dumps: {name} holds {sorted(z.files)}")
+    return dict(files=names, keys=len(RESET_DUMP_KEYS))
 
 
 def _summary_checks(name: str, summary: dict, n: int) -> None:
@@ -557,7 +787,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
-    # 1. device
+    # 1. device (the host memory the imports hold before CUDA's init)
+    print(f"host rss after imports: {host_rss_mb():.1f} MB", flush=True)
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -566,15 +797,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({_build.library_path()})", flush=True)
+          f"({_build.library_path()}); host rss {host_rss_mb():.1f} MB",
+          flush=True)
 
     # 3. kernels against their plain versions at the main path's shapes
     t0 = time.perf_counter()
     frames, poses_gt, _, cam = synthetic.render_sequence(**SEQ)
     print(f"render: {time.perf_counter() - t0:.1f} s", flush=True)
-    cfg = VOConfig()
-    cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba,
-                                                          enabled=False))
+    cfg = with_option(VOConfig(), "ba", enabled=False)
     probe = create_frontend(cfg, cam, device="cuda")
     img0 = torch.as_tensor(frames[0]).cuda()
     img1 = torch.as_tensor(frames[1]).cuda()
@@ -594,6 +824,9 @@ def main() -> int:
     for name, r in results.items():
         print(f"kernel {name}: " + json.dumps(r), flush=True)
     print("detect: " + json.dumps(sc.check_detect(img1, kw)), flush=True)
+    templates = sc.check_lk_templates(frames, cam)
+    print("kernel lk_level at the LK templates: " + json.dumps(templates),
+          flush=True)
 
     # 4. main path
     _build.reset_launches()
@@ -633,8 +866,13 @@ def main() -> int:
     paths = (frames, poses_gt, cam, card)
     prod, fe5 = run_production(*paths)
     print("production path: " + json.dumps(prod), flush=True)
-    reset = run_reset(*paths)
-    print("reset path: " + json.dumps(reset), flush=True)
+    dump_dir = tempfile.mkdtemp(prefix="reset_dumps_")
+    try:
+        reset = run_reset(*paths, dump_dir=dump_dir)
+        print("reset path: " + json.dumps(reset), flush=True)
+        dumps = check_reset_dumps(dump_dir, reset)
+    finally:
+        shutil.rmtree(dump_dir, ignore_errors=True)
     print("ba solve: " + json.dumps(check_ba_determinism(fe5)),
           flush=True)
     del fe5
@@ -650,11 +888,26 @@ def main() -> int:
            for k in ("synthetic", "kitti", "kitti_sync_ba")}
     print("cli frames/s (process loop): " + json.dumps(fps) + "; " + card,
           flush=True)
+    # 10. the long run
+    long = run_long(card)
+    print("long run: " + json.dumps(long), flush=True)
+    # 11. the options
+    device_apply = run_device_apply(card, textured)
+    print("options device apply: " + json.dumps(device_apply), flush=True)
+    options = {name: run_option(frames, poses_gt, cam, card, name)
+               for name in OPTIONS}
+    for name, out in options.items():
+        print(f"options {name}: " + json.dumps(out), flush=True)
+    print("options reset dumps: " + json.dumps(dumps), flush=True)
     by_path = {"ba_off": launches, "production": prod["launches"],
                "reset": reset["launches"], "textured": textured["launches"],
                "cli_synthetic": cli["synthetic"]["launches"],
                "cli_kitti": cli["kitti"]["launches"],
-               "cli_resume": cli["resume"]["launches"]}
+               "cli_resume": cli["resume"]["launches"],
+               "long_run": long["launches"],
+               "device_apply": device_apply["launches"],
+               "anchor": options["anchor"]["launches"],
+               "photometric_norm": options["photometric_norm"]["launches"]}
 
     sources = {"fast_score": ("ya_vo_tpu_torch/csrc/fast_score.cu",
                               "ya_vo_tpu/features/pallas_fast.py:70"),

@@ -3,6 +3,8 @@
 
     python3 port_frames_ab.py PARENT_DIR CHANGE_DIR [--pairs 6] [--runs 2]
     python3 port_frames_ab.py PARENT_DIR CHANGE_DIR --detect [--pairs 2]
+    python3 port_frames_ab.py --apply-mode [TREE] [--pairs 4] [--runs 1]
+                              [--warm 8 ...] [--world-seed S ...]
 
 Each side runs in a process of its own from its own checkout (so each
 imports its own `ya_vo_tpu_torch` and builds its own kernels), on one CUDA
@@ -18,11 +20,24 @@ path's parameters on frame 1 of that sequence, 20 calls under
 `torch.profiler`: device ms a call (the sum of all device events), device
 events and CUDA runtime launch calls a call, and the call's time by CUDA
 events around 20 calls (host issue included). Prints one JSON line a run.
+
+With `--apply-mode`, the two sides are the window BA's apply modes of one
+checkout (TREE, default the current directory), "push" and "device", on
+`chip_smoke.py` phase 8's workload: the first TEXTURED_N frames of the
+bench's textured world rendered on the card, `VOConfig()` with only
+`ba.apply_mode` set. Each process warms up (8 frames through `process`,
+`precompile()`), then times `--runs` fresh frontends for each `--warm`
+count W: W frames through `process` and `precompile()` (none at W = 0),
+then `run(pipelined=True)` over the rest, the render inside the window.
+`--world-seed` repeats it on other seeds of the world. Prints each run's
+frames/s, redone dispatches, resets, solves and ATE_sim3, then the
+medians, quartiles and pairs won of each seed.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -87,8 +102,57 @@ print(json.dumps(dict(
 """
 
 
-def run_side(tree: str, runs: int, detect: bool = False) -> list:
-    args = ["-c", DETECT_CHILD] if detect else ["-c", CHILD, str(runs)]
+APPLY_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+import chip_smoke as cs
+from ya_vo_tpu_torch import create_frontend
+from ya_vo_tpu_torch.config import VOConfig, with_option
+from ya_vo_tpu_torch.utils.scene import TexturedSequence
+from ya_vo_tpu_torch.viz import evaluation
+runs, mode = int(sys.argv[1]), sys.argv[2]
+seed = cs.TEXTURED["seed"] if sys.argv[4] == "None" else int(sys.argv[4])
+warms = [int(w) for w in sys.argv[3].split(",")]
+cfg = with_option(VOConfig(), "ba", apply_mode=mode)
+seq = TexturedSequence(**dict(cs.TEXTURED, seed=seed), device="cuda")
+n = cs.TEXTURED_N
+gt_cw = np.linalg.inv(seq.poses[:n])
+fe = create_frontend(cfg, seq.cam, device="cuda")      # warm-up, untimed
+for f in range(8):
+    fe.process(seq.frame(f))
+fe.precompile()
+for rep in range(runs):
+    for warm in warms:
+        fe = create_frontend(cfg, seq.cam, device="cuda")
+        for f in range(warm):
+            fe.process(seq.frame(f))
+        if warm:
+            fe.precompile()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fe.run((seq.frame(f) for f in range(warm, n)), pipelined=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(json.dumps(dict(
+            seed=seed, warm=warm, frames_per_s=(n - warm) / dt,
+            redone=fe.n_redone, resets=fe.n_resets, ba_solves=fe.n_ba_runs,
+            ba_discarded=fe.n_ba_discarded,
+            ate_sim3=evaluation.ate_rmse(np.stack(fe.trajectory), gt_cw,
+                                         with_scale=True),
+            card=cs.card_line())), flush=True)
+"""
+
+
+def run_side(tree: str, runs: int, detect: bool = False,
+             apply_mode: str = None, warms=(8,), seed: int = None) -> list:
+    if detect:
+        args = ["-c", DETECT_CHILD]
+    elif apply_mode:
+        args = ["-c", APPLY_CHILD, str(runs), apply_mode,
+                ",".join(map(str, warms)), str(seed)]
+    else:
+        args = ["-c", CHILD, str(runs)]
     out = subprocess.run([sys.executable, *args],
                          cwd=tree, capture_output=True, text=True,
                          timeout=900)
@@ -96,18 +160,35 @@ def run_side(tree: str, runs: int, detect: bool = False) -> list:
         raise RuntimeError(f"{tree}: {out.stderr[-2000:]}")
     if detect:
         return out.stdout.strip().splitlines()[-1:]
+    if apply_mode:
+        return [json.loads(x) for x in out.stdout.split("\n") if x]
     return [float(x) for x in out.stdout.split()]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("parent")
-    ap.add_argument("change")
+    ap.add_argument("parent", nargs="?", default=".")
+    ap.add_argument("change", nargs="?")
     ap.add_argument("--pairs", type=int, default=6)
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--detect", action="store_true",
                     help="time one fast.detect call instead of frames/s")
+    ap.add_argument("--apply-mode", action="store_true",
+                    help="push against device BA apply in one checkout")
+    ap.add_argument("--warm", type=int, nargs="+", default=[8],
+                    help="with --apply-mode: frames through `process` "
+                    "before each timed run, one run each (0: pipelined "
+                    "from frame 0, as chip_smoke.py phase 11 (a))")
+    ap.add_argument("--world-seed", type=int, nargs="+", default=None,
+                    help="with --apply-mode: the textured world's seeds, "
+                    "each alternated in turn (default chip_smoke.py "
+                    "phase 8's)")
     args = ap.parse_args()
+    if args.apply_mode:
+        return apply_modes(os.path.abspath(args.parent), args.pairs,
+                           args.runs, args.warm, args.world_seed)
+    if args.change is None:
+        ap.error("PARENT_DIR and CHANGE_DIR are required")
     sides = {"parent": os.path.abspath(args.parent),
              "change": os.path.abspath(args.change)}
     if args.detect:
@@ -117,26 +198,56 @@ def main() -> int:
                 line, = run_side(sides[name], 0, detect=True)
                 print(f"pair {i} {name} detect: {line}", flush=True)
         return 0
-    got = {name: [] for name in sides}
-    wins = {name: 0 for name in sides}
-    for i in range(args.pairs):
-        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+    got, wins = alternate(
+        ("parent", "change"), args.pairs,
+        lambda name: run_side(sides[name], args.runs),
+        lambda xs: " ".join(f"{x:.2f}" for x in xs))
+    summarize(got, wins, args.pairs)
+    return 0
+
+
+def alternate(names, pairs: int, side, show):
+    """`pairs` pairs of runs of the two sides `names`, the first side
+    first in even pairs; `side(name)` returns a run's frames/s list (or
+    records with `frames_per_s`). Returns (frames/s by side, pairs won)."""
+    got = {name: [] for name in names}
+    wins = {name: 0 for name in names}
+    for i in range(pairs):
+        order = names if i % 2 == 0 else names[::-1]
         pair = {}
         for name in order:
-            pair[name] = run_side(sides[name], args.runs)
+            out = side(name)
+            print(f"pair {i} {name}: {show(out)}", flush=True)
+            pair[name] = [x["frames_per_s"] if isinstance(x, dict) else x
+                          for x in out]
             got[name] += pair[name]
-            print(f"pair {i} {name}: " + " ".join(f"{x:.2f}"
-                                                  for x in pair[name]),
-                  flush=True)
         means = {name: float(np.mean(v)) for name, v in pair.items()}
-        if means["parent"] != means["change"]:
+        if len(set(means.values())) > 1:
             wins[max(means, key=means.get)] += 1
+    return got, wins
+
+
+def apply_modes(tree: str, pairs: int, runs: int, warms, seeds) -> int:
+    """`--apply-mode`: push against device apply, alternating, on each
+    world seed in turn."""
+    for seed in seeds or [None]:
+        print(f"world seed {'of phase 8' if seed is None else seed}:",
+              flush=True)
+        got, wins = alternate(
+            ("push", "device"), pairs,
+            lambda mode: run_side(tree, runs, apply_mode=mode, warms=warms,
+                                  seed=seed),
+            lambda recs: " ".join(json.dumps(r) for r in recs))
+        summarize(got, wins, pairs)
+    return 0
+
+
+def summarize(got: dict, wins: dict, pairs: int) -> None:
     for name, v in got.items():
         q1, med, q3 = np.percentile(v, [25, 50, 75])
         print(f"{name}: median {med:.2f} frames/s, quartiles {q1:.2f}-"
               f"{q3:.2f}, range {min(v):.2f}-{max(v):.2f}, "
-              f"pairs won {wins[name]} of {args.pairs}")
-    return 0
+              f"pairs won {wins[name]} of {pairs}")
 
 
 if __name__ == "__main__":

@@ -28,6 +28,12 @@ one of (the first four by default):
              `solve_window` in float32 and in float64 on the same problem:
              the three windows whose port and JAX poses differ most, each
              with both solves' distance to the float64 one.
+  textured_device - `textured` with `ba.apply_mode="device"`
+             (chip_smoke.py phase 11 (a));
+  options  - the same 40 frames at VOConfig() unmodified but for one
+             option each (chip_smoke.py phase 11 (b)): `anchor`,
+             `tracking.lk_template="anchor"`, and `photometric_norm`,
+             `features.photometric_norm=True`; one line each;
   cli      - the JAX CLI, `run_vo.main`, on chip_smoke.py phase 9's
              arguments: `--synthetic` at its defaults (30 frames,
              376x1241), then a KITTI tree (`chip_smoke.write_kitti_tree`)
@@ -79,6 +85,7 @@ from ya_vo_tpu.tracking.frontend import Frontend
 from ya_vo_tpu.utils import synthetic
 from ya_vo_tpu.utils.scene import TexturedSequence
 from ya_vo_tpu.viz import evaluation
+from ya_vo_tpu_torch.config import with_option
 from ya_vo_tpu_torch.tracking import lk_cuda
 
 
@@ -98,11 +105,19 @@ def tpu_semantics_lk(img0, img1, uv0, uv_init, mask, **kw):
                                              uv_init, mask))
 
 
+# VOConfig() with one option set: the `options` runs and textured_device
+OPTIONS = dict(chip_smoke.OPTIONS,
+               textured_device=("ba", {"apply_mode": "device"}))
+
+
 def run(name: str, frames, poses_gt, cam) -> dict:
     cfg = VOConfig()
     if name == "ba_off":
         cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba,
                                                               enabled=False))
+    if name in OPTIONS:
+        section, fields = OPTIONS[name]
+        cfg = with_option(cfg, section, **fields)
     seq = with_blackout(frames) if name == "blackout" else list(frames)
     fe = Frontend(cfg, cam)
     t0 = time.perf_counter()
@@ -253,7 +268,11 @@ def main() -> None:
     args = ap.parse_args()
     stamps = synthetic.render_sequence(**chip_smoke.SEQ)
     jlk.auto_track = tpu_semantics_lk
-    for name in args.runs.split(","):
+    names = args.runs.split(",")
+    if "options" in names:
+        i = names.index("options")
+        names[i:i + 1] = list(chip_smoke.OPTIONS)
+    for name in names:
         if name == "cli":
             for out in cli():
                 print(json.dumps(out), flush=True)
@@ -262,8 +281,8 @@ def main() -> None:
             print(json.dumps(refine(args.refine_frames, args.refine_tex)),
                   flush=True)
             continue
-        frames, poses_gt, *_, cam = textured() if name == "textured" \
-            else stamps
+        frames, poses_gt, *_, cam = textured() if name.startswith(
+            "textured") else stamps
         print(json.dumps(run(name, frames, poses_gt, cam)), flush=True)
 
 

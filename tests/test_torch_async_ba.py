@@ -4,17 +4,23 @@ tracking goes on, and `_poll_ba` applies it through the staleness and
 divergence gates. On test_frontend_e2e.py's 10-frame 256x768 sequence,
 on the CPU: the asynchronous run's ATE_sim3 within max(2x, 0.05) of the
 synchronous run's (test_frontend_e2e.py's bound), `finish()` draining the
-backend, deferral behind a slow solve, a failing solve logged and dropped,
-and the observers firing once a frame on both drivers."""
+backend, deferral behind a slow solve, a failing solve re-raised by
+`finish()` and logged and dropped by `_poll_ba` (in both packages), and
+the observers firing once a frame on both drivers."""
 
+import concurrent.futures
 import dataclasses
 import logging
+import threading
 import time
 
 import numpy as np
 import pytest
 
 from tests.test_frontend_e2e import make_config as e2e_config
+from ya_vo_tpu.ba import window as jwindow
+from ya_vo_tpu.core import camera as jcamera
+from ya_vo_tpu.tracking.frontend import Frontend as JFrontend
 from ya_vo_tpu_torch.ba import window as ba_window
 from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.tracking.frontend import Frontend
@@ -95,26 +101,64 @@ def test_finish_drains_the_backend(sequence, monkeypatch):
     assert len(fe.trajectory) == len(imgs)
 
 
-def test_failing_solve_is_logged_and_dropped(sequence, monkeypatch, caplog):
-    """A solve that raises on the backend is logged and dropped: nothing
-    re-runs it, and tracking goes on to the last frame."""
-    imgs, _, _, cam = sequence
+def _jax_frontend(cam):
+    """The JAX package's frontend on the same config, BA asynchronous."""
+    cfg = e2e_config(sync_ba=True, apply_mode="push")
+    return JFrontend(dataclasses.replace(cfg, ba=dataclasses.replace(
+        cfg.ba, asynchronous=True, distributed="off")),
+        jcamera.Camera.create(*(float(c) for c in cam[:4])))
 
-    def boom(*a, **kw):
+
+def test_failing_solve_is_logged_and_dropped(sequence, monkeypatch, caplog):
+    """Both packages, each frame through `process` until the first window
+    solve is submitted; every solve raises once `gate` is set. (1) Held
+    pending by the gate, the failing solve makes `finish()` raise the
+    solver's error in the caller's thread. (2) Found done by `_poll_ba`,
+    it is logged and dropped: nothing applied, nothing left pending, and
+    the frontend goes on tracking."""
+    imgs, _, _, cam = sequence
+    gate = threading.Event()
+
+    def failing(*a, **kw):
+        gate.wait()
         raise RuntimeError("solver failed")
 
-    monkeypatch.setattr(ba_window, "solve_window", boom)
-    fe = Frontend(make_config(True), cam, device="cpu")
-    with caplog.at_level(logging.ERROR, logger="ya_vo_tpu_torch.frontend"):
-        traj = fe.run(imgs)
-    assert traj.shape == (10, 4, 4) and np.isfinite(traj).all()
-    assert [r.status for r in fe.results].count("TRACKING") == 9
-    assert fe.n_ba_runs == 0 and fe.ba_ms == []
-    failed = [r for r in caplog.records
-              if r.getMessage() == "backend BA solve failed"]
-    assert failed and all("solver failed" in str(r.exc_info[1])
-                          for r in failed)
-    assert fe._ba_pending is None
+    monkeypatch.setattr(ba_window, "solve_window", failing)
+    monkeypatch.setattr(jwindow, "solve_window", failing)
+
+    def until_submitted(fe):
+        for img in imgs:
+            fe.process(img)
+            if fe._ba_pending is not None:
+                return
+        raise AssertionError("no window solve was submitted")
+
+    builds = {"jax": lambda: _jax_frontend(cam),
+              "port": lambda: Frontend(make_config(True), cam, device="cpu")}
+    for name, build in builds.items():
+        gate.clear()
+        fe = build()
+        until_submitted(fe)
+        gate.set()
+        with pytest.raises(RuntimeError, match="solver failed"):
+            fe.finish()
+
+        fe = build()
+        until_submitted(fe)
+        n_done = len(fe.results)
+        concurrent.futures.wait([fe._ba_pending["fut"]])
+        caplog.clear()
+        with caplog.at_level(logging.ERROR):
+            fe._poll_ba()
+        failed = [r for r in caplog.records
+                  if r.getMessage() == "backend BA solve failed"]
+        assert len(failed) == 1, name
+        assert "solver failed" in str(failed[0].exc_info[1]), name
+        assert fe._ba_pending is None and fe.n_ba_runs == 0, name
+        if name == "port":
+            assert fe.ba_ms == []
+        res = fe.process(imgs[n_done])
+        assert res.status == "TRACKING", name
 
 
 @pytest.mark.parametrize("pipelined", [False, True])

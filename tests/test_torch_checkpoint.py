@@ -204,3 +204,64 @@ def test_checkpoint_mid_pipeline_flushes_inflight(session, tmp_path):
     ate_ref = evaluation.ate_rmse(np.stack(fe_ref.trajectory), gt_cw)
     assert fe2.n_resets == 0
     assert ate_resumed < max(0.05, 2 * ate_ref), (ate_resumed, ate_ref)
+
+
+# the keys an older checkpoint lacks, by the fallback that takes their place
+# (ya_vo_tpu/utils/checkpoint.py:122-166)
+OLDER = {
+    "kf_obs_stamp": ("kf_obs_stamp",),
+    "landmark_stamp": ("landmark_stamp", "lm_free", "lm_stamp_counter",
+                       "kf_stamp_counter", "kf_stamp"),
+    "window_barrier": ("window_barrier",),
+    "track_anchor_uv": ("track_anchor_uv", "kf_ref_inliers",
+                        "anchor_kf_pose", "anchor_kf_img", "anchor_kf_kp_uv",
+                        "anchor_kf_kp_score", "anchor_kf_kp_mask",
+                        "anchor_kf_desc"),
+}
+
+
+def _host(x):
+    """A state field as numpy (descriptors as their uint32 bits)."""
+    if x is None:
+        return None
+    if hasattr(x, "numpy"):
+        x = x.numpy()
+    x = np.array(x)
+    return x.view(np.uint32) if x.dtype == np.int32 and x.ndim == 2 \
+        and x.shape[1] == 8 else x
+
+
+@pytest.mark.parametrize("case", sorted(OLDER))
+def test_older_checkpoint_loads_as_in_jax(session, tmp_path, case):
+    """A JAX checkpoint with one older schema's keys deleted loads into
+    both packages, and the restored map and frontend state are equal field
+    by field: the map's arrays and counters, the host mirrors, the device
+    chain and the previous and anchor frames' images, keypoints and
+    descriptors."""
+    _, _, cam, paths, *_ = session
+    z = _npz(paths["A"])
+    for k in OLDER[case]:
+        del z[k]
+    path = str(tmp_path / f"older_{case}.npz")
+    np.savez_compressed(path, **z)
+    jfe = JFrontend(make_config(), cam)
+    jckpt.load_frontend(jfe, path)
+    fe = port(cam)
+    tckpt.load_frontend(fe, path)
+    assert fe.status.name == jfe.status.name == "TRACKING"
+    jmap, tmap = convert.map_arrays(jfe.map), convert.map_arrays(fe.map)
+    assert jmap.keys() == tmap.keys()
+    for k in jmap:
+        np.testing.assert_array_equal(tmap[k], jmap[k], err_msg=k)
+    for k in (convert.HOST_KEYS + convert.DEVICE_KEYS
+              + ("last_img", "last_desc", "_kf_img", "_kf_desc")):
+        a, b = _host(getattr(fe, k)), _host(getattr(jfe, k))
+        assert (a is None) == (b is None), k
+        if a is not None:
+            np.testing.assert_array_equal(a, b, err_msg=k)
+    for k in ("last_kp", "_kf_kp"):
+        a, b = getattr(fe, k), getattr(jfe, k)
+        assert (a is None) == (b is None), k
+        if a is not None:
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(_host(x), _host(y), err_msg=k)

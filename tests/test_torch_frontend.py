@@ -246,8 +246,10 @@ def test_one_fused_step_from_jax_state(reference):
 
 def test_unsupported_configs_raise(monkeypatch):
     """VOConfig() builds (sync window BA, push apply, one device), and so
-    does asynchronous window BA; the options outside the port raise, each
-    naming its ROADMAP item."""
+    do asynchronous window BA, `apply_mode="device"`,
+    `lk_template="anchor"` and `photometric_norm=True`; a stereo camera
+    raises, and so does the landmark-sharded solver with more than one
+    card visible, naming its ROADMAP item."""
     cam = tsynthetic.kitti_camera()
     base = make_config()
     create_frontend(VOConfig(), cam, device="cpu")
@@ -255,21 +257,21 @@ def test_unsupported_configs_raise(monkeypatch):
     fe = create_frontend(VOConfig(ba=dataclasses.replace(
         ba, asynchronous=True)), cam, device="cpu")
     assert fe.cfg.ba.asynchronous
-    with pytest.raises(NotImplementedError, match="apply_mode"):
-        create_frontend(VOConfig(ba=dataclasses.replace(
-            ba, apply_mode="device")), cam, device="cpu")
-    with pytest.raises(NotImplementedError, match="lk_template"):
-        create_frontend(dataclasses.replace(base, tracking=dataclasses.replace(
-            base.tracking, lk_template="anchor")), cam, device="cpu")
-    with pytest.raises(NotImplementedError, match="photometric_norm"):
-        create_frontend(dataclasses.replace(base, features=dataclasses.replace(
-            base.features, photometric_norm=True)), cam, device="cpu")
+    fe = create_frontend(VOConfig(ba=dataclasses.replace(
+        ba, apply_mode="device")), cam, device="cpu")
+    assert fe.cfg.ba.apply_mode == "device"
+    fe = create_frontend(dataclasses.replace(base, tracking=dataclasses.replace(
+        base.tracking, lk_template="anchor")), cam, device="cpu")
+    assert fe.cfg.tracking.lk_template == "anchor"
+    fe = create_frontend(dataclasses.replace(base, features=dataclasses.replace(
+        base.features, photometric_norm=True)), cam, device="cpu")
+    assert fe._norm
     with pytest.raises(ValueError, match="monocular"):
         create_frontend(dataclasses.replace(base, camera_type="stereo"), cam,
                         device="cpu")
     # more than one visible card: the landmark-sharded solver is not ported
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(NotImplementedError, match="distributed.*item 7"):
         create_frontend(VOConfig(), cam, device="cpu")
     create_frontend(VOConfig(ba=dataclasses.replace(ba, distributed="off")),
                     cam, device="cpu")
@@ -299,8 +301,8 @@ def test_tf32_off():
 
 def test_port_runs_without_jax():
     """Every module of the port (window BA, the textured renderer, offline
-    refinement, the selfcheck, the bench, the CLI, its I/O, checkpoint and
-    viewers included) and chip_smoke.py imported, VOConfig() unmodified
+    refinement, the selfcheck, the bench, the CLI, the long run, its I/O,
+    checkpoint and viewers included) and chip_smoke.py imported, VOConfig() unmodified
     run for four frames and refined offline, and a textured frame
     rendered, in a fresh interpreter: no JAX and nothing of the JAX
     package is loaded."""
@@ -310,6 +312,7 @@ def test_port_runs_without_jax():
         "import ya_vo_tpu_torch.ba.window, ya_vo_tpu_torch.ba.global_refine\n"
         "import ya_vo_tpu_torch.utils.scene, ya_vo_tpu_torch.selfcheck\n"
         "import ya_vo_tpu_torch.bench, ya_vo_tpu_torch.run_vo\n"
+        "import ya_vo_tpu_torch.longrun\n"
         "import ya_vo_tpu_torch.io.kitti, ya_vo_tpu_torch.utils.checkpoint\n"
         "import ya_vo_tpu_torch.viz.render, ya_vo_tpu_torch.viz.live\n"
         "for m in pkgutil.walk_packages(ya_vo_tpu_torch.__path__,\n"

@@ -41,7 +41,6 @@ ATE to 4, render ms to 1, `value` and `vs_baseline` to 3.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import subprocess
@@ -54,7 +53,8 @@ import torch
 
 from ya_vo_tpu_torch import create_frontend
 from ya_vo_tpu_torch.ba.global_refine import global_refine
-from ya_vo_tpu_torch.config import FeatureConfig, TrackConfig, VOConfig
+from ya_vo_tpu_torch.config import (FeatureConfig, TrackConfig, VOConfig,
+                                     with_option)
 from ya_vo_tpu_torch.selfcheck import card_line
 from ya_vo_tpu_torch.utils import synthetic
 from ya_vo_tpu_torch.utils.scene import TexturedSequence
@@ -129,8 +129,7 @@ def stamps_secondary(device: torch.device, n_frames: int, height: int,
                    features=FeatureConfig(max_keypoints=2048),
                    tracking=TrackConfig(min_ba_inliers=20,
                                         min_flow_inliers=5))
-    cfg = dataclasses.replace(cfg, ba=dataclasses.replace(
-        cfg.ba, asynchronous=True))
+    cfg = with_option(cfg, "ba", asynchronous=True)
     fe = create_frontend(cfg, cam, device=device)
     for img in imgs[:STAMPS_WARM]:
         fe.process(img)

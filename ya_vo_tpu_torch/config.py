@@ -10,7 +10,7 @@ Every one of those knobs is an explicit field here.
 
 The port's own copy of the JAX package's `ya_vo_tpu/config.py`: the same
 classes, fields, defaults and functions (held equal by
-tests/test_torch_numpy_modules.py).
+tests/test_torch_numpy_modules.py), plus `with_option`.
 """
 
 from __future__ import annotations
@@ -351,3 +351,9 @@ class VOConfig:
     def to_json(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(dataclasses.asdict(self), f, indent=2)
+
+
+def with_option(cfg, section: str, **fields):
+    """`cfg` with `fields` of its section `section` (e.g. "ba") replaced."""
+    return dataclasses.replace(cfg, **{section: dataclasses.replace(
+        getattr(cfg, section), **fields)})

@@ -19,7 +19,6 @@ in the profiled window.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import torch
@@ -27,7 +26,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ya_vo_tpu_torch import _build, create_frontend
-from ya_vo_tpu_torch.config import VOConfig
+from ya_vo_tpu_torch.config import VOConfig, with_option
 from ya_vo_tpu_torch.utils import synthetic
 from ya_vo_tpu_torch.utils.scene import TexturedSequence
 
@@ -66,8 +65,7 @@ def main() -> None:
     n_frames = synthetic.STAMPS["n_frames"]
     cfg = VOConfig()
     if not (args.production or args.textured):
-        cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba,
-                                                              enabled=False))
+        cfg = with_option(cfg, "ba", enabled=False)
     fe = create_frontend(cfg, cam, device="cuda")
     fe.run(frame(f) for f in range(WARM))
     torch.cuda.synchronize()

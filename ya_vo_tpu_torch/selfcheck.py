@@ -39,7 +39,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ya_vo_tpu_torch import _build
-from ya_vo_tpu_torch.config import VOConfig
+from ya_vo_tpu_torch.config import VOConfig, with_option
 from ya_vo_tpu_torch.features import brief, fast, fast_cuda, hamming_cuda
 from ya_vo_tpu_torch.tracking import lk, lk_cuda
 from ya_vo_tpu_torch.tracking.frontend import detect_kwargs
@@ -519,13 +519,13 @@ def lk_problems(per_level, tracker) -> list:
     return bad
 
 
-def lk_parity(img0, img1, uv0, mask):
+def lk_parity(img0, img1, uv0, mask, seed=None):
     """K1 against its plain version (`compare_lk`) on the keypoints uv0
-    with border clamps and dead slots among them, held to the stated
-    tolerances. Returns (errors by level, tracker errors, the pyramids,
-    the cases)."""
+    (seeded at `seed`, default uv0) with border clamps and dead slots
+    among them, held to the stated tolerances. Returns (errors by level,
+    tracker errors, the pyramids, the cases)."""
     H, W = img0.shape
-    cases = lk_edge_cases(uv0, uv0, mask, H, W)
+    cases = lk_edge_cases(uv0, uv0 if seed is None else seed, mask, H, W)
     per_level, pyrs, tracker = compare_lk(img0, img1, *cases)
     print("kernel lk_level errors: " + json.dumps(
         dict(per_level=per_level, tracker=tracker)), flush=True)
@@ -541,10 +541,10 @@ def lk_summary(per_level, tracker) -> dict:
                                for s in per_level.values()))
 
 
-def check_lk(img0, img1, uv0, mask):
+def check_lk(img0, img1, uv0, mask, seed=None):
     """`lk_parity`, then K1's costs on these inputs."""
     per_level, tracker, (pyr0, pyr1), cases = lk_parity(img0, img1, uv0,
-                                                         mask)
+                                                         mask, seed)
     uv0, seed, mask, _ = cases
 
     def kernel():
@@ -570,6 +570,48 @@ def check_lk(img0, img1, uv0, mask):
                 call_ms=time_ms(kernel),
                 plain_ms=time_ms(plain, reps=5),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def template_lk_inputs(frames, cam, ahead: int = 4, device="cuda") -> dict:
+    """K1's inputs under each LK template on `frames` (the stamps world):
+    a frontend at VOConfig() with window BA off bootstraps on frames 0-1,
+    then, from its device chain, the frontend's own `lk_inputs` for
+    "anchor": the keyframe image (frame 1) and frame 1 + `ahead`, at the
+    pose the constant-velocity prior extrapolates over `ahead` frames;
+    "prev": frame 1 and frame 2. Each is (template image, image, uv, mask,
+    seed)."""
+    from ya_vo_tpu_torch.tracking.frontend import Frontend, lk_inputs
+
+    fe = Frontend(with_option(VOConfig(), "ba", enabled=False), cam,
+                  device=device)
+    for img in frames[:2]:
+        fe.process(img)
+    check(fe.status.name == "TRACKING", "template inputs: no bootstrap")
+    kf_img = fe._d_kf_img.float()
+    out = {}
+    for name, f, rel in (("anchor", 1 + ahead,
+                          torch.linalg.matrix_power(fe._d_rel, ahead)),
+                         ("prev", 2, fe._d_rel)):
+        # frame 1 is both the keyframe and the previous frame
+        tmpl_img, uv, seed, use = lk_inputs(
+            name, cam, fe._d_pose, rel, fe._d_lm_pos, fe._d_track_uv,
+            fe._d_anchor_uv, fe._d_track_valid, kf_img, kf_img)
+        img = torch.as_tensor(np.asarray(frames[f])).to(device).float()
+        out[name] = (tmpl_img, img, uv, use, seed)
+    return out
+
+
+def check_lk_templates(frames, cam, ahead: int = 4) -> dict:
+    """`check_lk` at each LK template's inputs (`template_lk_inputs`):
+    level by level against the plain version at the stated tolerances, and
+    K1's device time and iterations under each."""
+    out = {}
+    for name, (img0, img1, uv, mask, seed) in template_lk_inputs(
+            frames, cam, ahead).items():
+        out[name] = check_lk(img0, img1, uv.contiguous(), mask,
+                             seed.contiguous())
+        out[name]["n_tracked"] = int(mask.sum())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,24 +3,31 @@ step.
 
 Port of `ya_vo_tpu/tracking/frontend.py`: the two-view bootstrap, the fused
 per-frame tracking step (FAST + BRIEF extraction, then the state-dependent
-body: projection-seeded LK from the previous frame, robust pose GN,
-speculative replenishment against the anchor keyframe and the on-device
-keyframe decision and track-table merge), the host replay of each frame's
-record into the numpy `MapStore`, the sliding-window BA with its
-divergence gate and push apply (synchronous, or asynchronous on a backend
+body: projection-seeded LK from the previous frame, or from the anchor
+keyframe under `lk_template="anchor"`, robust pose GN, speculative
+replenishment against the anchor keyframe and the on-device keyframe
+decision and track-table merge), the host replay of each frame's record
+into the numpy `MapStore` with its lifecycle (landmark retirement and
+recycling, keyframe eviction), the sliding-window BA with its divergence
+gate and its two apply modes (synchronous, or asynchronous on a backend
 thread with the staleness gate and its slow-host backoff), the reset path
 (PnP relocalization against the surviving map, else the unit-scale
 two-view bootstrap chained on the last pose), the pipelined driver with
-its redo of in-flight frames after a state push, and the per-frame
-observers (`observers`, e.g. `viz.live.attach`).
+its redo of in-flight frames after a state push, the optional photometric
+normalization on ingest, the per-frame observers (`observers`, e.g.
+`viz.live.attach`) and the reset and rejected-solve dumps
+(`YA_VO_DUMP_RESET_DIR`, `YA_VO_DUMP_BA_DIR`).
 
 Tracking state lives as tensors on `device`. Each frame's record is copied
 with `non_blocking` copies into pinned host memory behind a CUDA event, so
 the host resolves a frame `pipeline_depth - 1` frames after dispatching it
 without stalling the card. When a resolve rebuilds host state (bootstrap,
-reset, relocalization, BA apply), the state is pushed and every in-flight
-frame is re-dispatched against it, reusing its extraction: the pipelined
-driver's results are the synchronous driver's, bit for bit.
+reset, relocalization, a BA apply under `apply_mode="push"`), the state is
+pushed and every in-flight frame is re-dispatched against it, reusing its
+extraction: the pipelined driver's results are the synchronous driver's,
+bit for bit. Under `apply_mode="device"` a BA apply is composed into the
+device chain in place instead, and the frames in flight are rotated into
+the corrected frame when they resolve: no push, no redo.
 
 Asynchronous window BA (`ba.asynchronous`) solves on one worker thread.
 On the card that thread issues the solve on a CUDA stream of its own,
@@ -28,10 +35,13 @@ after waiting on an event recorded on the frontend's stream where the
 window problem was built; the result reaches the host (numpy) inside the
 worker, so the frontend thread never waits on the backend stream. The
 problem's tensors stay referenced by the pending job until its result has
-been read. A solve that raises is logged and dropped.
+been read. A solve that raises is logged and dropped when `_poll_ba` finds
+it done; `finish()` and the staleness wait, which block on it, re-raise
+its error in the caller's thread. A result from before a keyframe-slot
+shift is dropped without being read.
 
-Options outside the port raise `NotImplementedError` instead of running a
-partial version.
+The landmark-sharded solver over several cards raises
+`NotImplementedError` instead of running a partial version.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ import concurrent.futures
 import contextlib
 import enum
 import logging
+import os
+import pickle
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -99,22 +111,48 @@ def _check_supported(config: VOConfig) -> None:
         raise ValueError(f"camera_type={config.camera_type!r} unsupported: "
                          f"this pipeline is monocular")
     ba = config.ba
-    if ba.enabled:
-        if ba.apply_mode != "push":
-            raise NotImplementedError(
-                f"ba.apply_mode={ba.apply_mode!r} is {_not_yet(9)}")
-        if ba.distributed != "off" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"ba.distributed={ba.distributed!r} with "
-                f"{torch.cuda.device_count()} CUDA devices visible (the "
-                f"landmark-sharded solver) is {_not_yet(7)}; set "
-                f"ba.distributed='off' or expose one device")
-    if config.tracking.lk_template != "prev":
+    if (ba.enabled and ba.distributed != "off"
+            and torch.cuda.device_count() > 1):
         raise NotImplementedError(
-            f"lk_template={config.tracking.lk_template!r} is {_not_yet(11)}")
-    if config.features.photometric_norm:
-        raise NotImplementedError(
-            f"photometric_norm=True is {_not_yet(11)}")
+            f"ba.distributed={ba.distributed!r} with "
+            f"{torch.cuda.device_count()} CUDA devices visible (the "
+            f"landmark-sharded solver) is {_not_yet(7)}; set "
+            f"ba.distributed='off' or expose one device")
+
+
+def photometric_normalize(img: torch.Tensor) -> torch.Tensor:
+    """`FeatureConfig.photometric_norm` on ingest: remap the frame affinely
+    to mean 128 and standard deviation 48 (float32 mean and population
+    std), then clip to [0, 255] and truncate to uint8. A frame whose std is
+    below 1 (a blackout) passes through at its own mean, so real signal
+    loss still fails the gates. No host sync."""
+    f = img.to(torch.float32)
+    mu = f.mean()
+    sd = f.std(correction=0)
+    ok = sd >= 1.0
+    g = torch.where(ok, 48.0 / torch.clamp(sd, min=1e-3),
+                    torch.ones_like(sd))
+    out = (f - mu) * g + torch.where(ok, torch.full_like(mu, 128.0), mu)
+    return out.clamp(0.0, 255.0).to(torch.uint8)
+
+
+def lk_inputs(template: str, cam: Camera, pose, rel, lm_pos, track_uv,
+              anchor_uv, track_mask, prev_img, kf_img):
+    """LK's (template image, template uv, seed, live mask) under the LK
+    template `template` at the constant-velocity prior `rel @ pose`."""
+    seed, z = cam.project(lie.transform_points(rel @ pose, lm_pos))
+    if template == "prev":
+        # frame-to-frame template: seed = last tracked position plus the
+        # projected motion delta
+        seed_prev, z_prev = cam.project(lie.transform_points(pose, lm_pos))
+        use = track_mask & (z > 0.25) & (z_prev > 0.25)
+        seed = torch.where(use[:, None], track_uv + (seed - seed_prev),
+                           track_uv)
+        return prev_img, track_uv, seed, use
+    # anchor-keyframe template: the absolute projection seeds LK from the
+    # keyframe image at the anchor positions
+    use = track_mask & (z > 0.25)
+    return kf_img, anchor_uv, torch.where(use[:, None], seed, anchor_uv), use
 
 
 def detect_kwargs(fc) -> dict:
@@ -150,6 +188,10 @@ class Frontend:
             brief.make_offsets(fc.brief_n_bits, fc.brief_patch_radius,
                                fc.brief_seed), self.device)
         self._generator = torch.Generator().manual_seed(config.ransac.seed)
+        # photometric normalization on ingest (`photometric_normalize`):
+        # applied once a frame, so a redo, `last_img` and a checkpoint hold
+        # the normalized frame
+        self._norm = fc.photometric_norm
         self.map = MapStore(max_landmarks=config.map.max_landmarks,
                             max_keyframes=config.map.max_keyframes,
                             max_obs_per_kf=fc.max_keypoints)
@@ -240,6 +282,11 @@ class Frontend:
             self._ba_executor.submit(self._precompile_window_ba)
 
     # ------------------------------------------------------------------ #
+    def _ingest(self, img) -> torch.Tensor:
+        """A frame on the device, normalized when `photometric_norm`."""
+        img = self._to_device(img)
+        return photometric_normalize(img) if self._norm else img
+
     def _to_device(self, img) -> torch.Tensor:
         if isinstance(img, torch.Tensor):
             return img.to(self.device, non_blocking=True)
@@ -274,15 +321,11 @@ class Frontend:
         K_cap = self.cfg.features.max_keypoints
 
         T_prior = rel @ pose
-        seed, z = cam.project(lie.transform_points(T_prior, lm_pos))
-        # frame-to-frame template: seed = last tracked position plus the
-        # projected motion delta
-        seed_prev, z_prev = cam.project(lie.transform_points(pose, lm_pos))
-        use = track_mask & (z > 0.25) & (z_prev > 0.25)
-        seed = torch.where(use[:, None], track_uv + (seed - seed_prev),
-                           track_uv)
+        tmpl_img, tmpl_uv, seed, use = lk_inputs(
+            tc.lk_template, cam, pose, rel, lm_pos, track_uv, anchor_uv,
+            track_mask, prev_img, kf_img)
         flow = lk_cuda.track(
-            prev_img, img_curr, track_uv, seed, use, levels=tc.lk_levels,
+            tmpl_img, img_curr, tmpl_uv, seed, use, levels=tc.lk_levels,
             half=tc.lk_window // 2, iters=tc.lk_iters, eps=tc.lk_eps,
             max_residual=tc.lk_max_residual, rel_residual=tc.lk_rel_residual)
         n_flow = flow.status.sum()
@@ -445,7 +488,7 @@ class Frontend:
         """Feed one grayscale frame, fully synchronously."""
         self.frame_id += 1
         self._poll_ba()
-        return self._process_sync(self._to_device(img))
+        return self._process_sync(self._ingest(img))
 
     def _process_sync(self, img_dev: torch.Tensor) -> FrameResult:
         t0 = time.perf_counter()
@@ -599,7 +642,8 @@ class Frontend:
          self._d_prev_img) = state_out
         return dict(frame_id=self.frame_id, img=img, prev_img=prev_img,
                     kp=kp, desc=desc, prev_kp=self.last_kp,
-                    prev_desc=self.last_desc, pull=self._pull(record), t0=t0)
+                    prev_desc=self.last_desc, pull=self._pull(record), t0=t0,
+                    post_corr=None)
 
     def _finish_track(self, rec: dict) -> FrameResult:
         """Evaluate the state-machine gates and replay the device-made
@@ -615,6 +659,7 @@ class Frontend:
         if n_flow < tc.min_flow_inliers or n_ba < tc.min_ba_inliers:
             # tracking failed: bootstrap from rec's PREDECESSOR frame pair
             # (self.last_* may already hold a newer dispatched frame)
+            self._maybe_dump_reset(rec, r)
             self.last_kp, self.last_desc = rec["prev_kp"], rec["prev_desc"]
             res = self._reset(kp, desc, n_matches=0, n_flow=n_flow,
                               n_ba=n_ba)
@@ -625,7 +670,14 @@ class Frontend:
             return res
 
         prev_pose = self.last_pose
-        self.last_pose = r["pose"].astype(np.float32)
+        pc_corr = rec["post_corr"]
+        if pc_corr is None:
+            self.last_pose = r["pose"].astype(np.float32)
+        else:
+            # dispatched before a BA apply was composed into the device
+            # chain (_apply_corr_device): rotate its pose into the
+            # corrected frame; rel_motion against the unrotated prev_pose
+            self.last_pose = (r["pose"] @ pc_corr).astype(np.float32)
         self.rel_motion = (self.last_pose @ np.linalg.inv(prev_pose)) \
             .astype(np.float32)
         # the divergence gate's scale: only MOVING steps enter the median
@@ -644,6 +696,11 @@ class Frontend:
         self._resolved_fid = max(self._resolved_fid, rec["frame_id"])
         if is_kf:
             keep = r["keep"]
+            r_pts = r["r_pts"]
+            if pc_corr is not None:
+                # fresh triangulations are in pre-correction coordinates
+                ic = np.linalg.inv(pc_corr)
+                r_pts = r_pts @ ic[:3, :3].T + ic[:3, 3]
             old_lm = self.track_lm
             # demote landmarks tracked by LK but rejected by the pose solve
             self.map.kill_landmarks(old_lm[r["flow_ok"] & ~r["inlier"]])
@@ -655,7 +712,7 @@ class Frontend:
             # replay the device merge: new landmarks enter the map in the
             # slot order the device assigned
             d, s = r["dest"][:n_new], r["src"][:n_new]
-            lm_ids = self.map.add_landmarks(r["r_pts"][s],
+            lm_ids = self.map.add_landmarks(r_pts[s],
                                             np.ones(n_new, bool))
             new_lm = np.where(keep, old_lm, -1).astype(np.int32)
             new_lm[d] = lm_ids
@@ -717,7 +774,7 @@ class Frontend:
                     "async BA %d keyframes behind: blocking for the "
                     "in-flight solve (sync-degraded cadence)", n_behind)
                 self._ba_pending["stale_floor"] = n_behind
-                concurrent.futures.wait([self._ba_pending["fut"]])
+                self._ba_pending["fut"].result()   # a failed solve raises
                 self._poll_ba()
             if self._ba_pending is not None:
                 # one solve in flight at a time: re-launch on its
@@ -802,20 +859,20 @@ class Frontend:
 
     def _poll_ba(self) -> None:
         """Apply a finished backend solve (frontend thread), then re-launch
-        a deferred window. A solve that raised is logged and dropped; a
-        result from before a keyframe-slot shift (`_session_epoch`) is
-        dropped."""
+        a deferred window. A result from before a keyframe-slot shift
+        (`_session_epoch`) is dropped unread; a current solve that raised
+        is logged and dropped."""
         p = self._ba_pending
         if p is None or not p["fut"].done():
             return
         self._ba_pending = None
-        try:
-            (new_poses, new_lms), ms = p["fut"].result()
-        except Exception:
-            _log.exception("backend BA solve failed")
-        else:
-            self.ba_ms.append(ms)
-            if p["epoch"] == self._session_epoch:
+        if p["epoch"] == self._session_epoch:
+            try:
+                (new_poses, new_lms), ms = p["fut"].result()
+            except Exception:
+                _log.exception("backend BA solve failed")
+            else:
+                self.ba_ms.append(ms)
                 self._apply_ba_result(
                     new_poses, new_lms, p["slots"], p["used"], p["n_real"],
                     p["anchor_old"], ms, kf_stamp_snap=p["kf_stamp"],
@@ -938,6 +995,7 @@ class Frontend:
                 "(|t|=%.3f vs step %.3f, rot=%.2f deg)",
                 "sync" if kf_stamp_snap is None else "async", t_corr, step,
                 r_corr)
+            self._maybe_dump_rejected_solve(new_poses, t_corr, r_corr)
             return
         self._last_ba_ms = ms
         self.n_ba_runs += 1
@@ -988,7 +1046,97 @@ class Frontend:
         # rel_motion is invariant under the right-multiplied correction
         self.last_pose = (self.last_pose @ corr).astype(np.float32)
         self._kf_pose = (self._kf_pose @ corr).astype(np.float32)
-        self._state_dirty = True
+        if bc.apply_mode == "device" and self.status is VOStatus.TRACKING:
+            # compose the correction into the device chain in place: no
+            # push, no redo of the frames in flight
+            self._apply_corr_device(corr)
+        else:
+            self._state_dirty = True
+
+    def _apply_corr_device(self, corr: np.ndarray) -> None:
+        """`apply_mode="device"`: compose a BA apply into the device chain.
+        The pose and keyframe pose are right-multiplied by `corr`; a track
+        slot whose merge the host has resolved (slot stamp <= the newest
+        resolved frame id) takes the host map's refined position, and a
+        slot merged by a keyframe still in flight keeps its fresh
+        triangulation, moved rigidly by corr^-1. Every record in flight was
+        dispatched before the correction: its `post_corr` composes it, and
+        `_finish_track` rotates its outputs when it resolves."""
+        dev = self.device
+        inv_c = np.linalg.inv(corr)
+        corr_d = torch.tensor(corr, device=dev)
+        inv_d = torch.tensor(inv_c, device=dev)
+        self._d_pose = self._d_pose @ corr_d
+        self._d_kf_pose = self._d_kf_pose @ corr_d
+        tl = np.maximum(self.track_lm, 0)
+        upd_mask = (self.track_valid & (self.track_lm >= 0)
+                    & self.map.landmark_alive[tl])
+        rigid = self._d_lm_pos @ inv_d[:3, :3].T + inv_d[:3, 3]
+        safe = torch.tensor(upd_mask, device=dev) & (
+            self._d_slot_stamp <= self._resolved_fid)
+        self._d_lm_pos = torch.where(
+            safe[:, None], torch.tensor(self.map.landmark_pos[tl],
+                                        device=dev), rigid)
+        for rec in self._pending_q:
+            rec["post_corr"] = corr if rec["post_corr"] is None \
+                else (rec["post_corr"] @ corr).astype(np.float32)
+
+    def _maybe_dump_reset(self, rec: dict, r: dict) -> None:
+        """With `YA_VO_DUMP_RESET_DIR` set, write the failing frame's slot
+        state (`reset_f<frame>.npz`: the gate counts, poses, LK and GN
+        masks, the device track table, landmark links, stamps and
+        positions) so a reset can be read slot by slot. A failed dump is
+        logged, never raised."""
+        d = os.environ.get("YA_VO_DUMP_RESET_DIR")
+        if not d:
+            return
+        try:
+            os.makedirs(d, exist_ok=True)
+            tl = np.maximum(self.track_lm, 0)
+            np.savez(
+                os.path.join(d, f"reset_f{rec['frame_id']}.npz"),
+                frame_id=rec["frame_id"],
+                n_flow=r["n_flow"].astype(np.int32),
+                n_ba=r["n_ba"].astype(np.int32),
+                pose=r["pose"], last_pose=self.last_pose,
+                rel_motion=self.rel_motion, flow_ok=r["flow_ok"],
+                gn_inlier=r["inlier"], keep=r["keep"],
+                track_uv=self._np(self._d_track_uv),
+                track_lm=self.track_lm,
+                track_valid=self._np(self._d_track_valid),
+                anchor_uv=self._np(self._d_anchor_uv),
+                lm_pos_dev=self._np(self._d_lm_pos),
+                lm_stamp=self.map.landmark_stamp[tl],
+                lm_alive=self.map.landmark_alive[tl],
+                slot_stamp=self._np(self._d_slot_stamp).astype(np.int32))
+            _log.warning("reset dump written to %s (frame %d)", d,
+                         rec["frame_id"])
+        except Exception:
+            _log.exception("reset dump failed")
+
+    def _maybe_dump_rejected_solve(self, new_poses, t_corr: float,
+                                   r_corr: float) -> None:
+        """With `YA_VO_DUMP_BA_DIR` set, pickle the window problem whose
+        solve the divergence gate rejected
+        (`rejected_f<frame>_<discards>.pkl`: {"prob", "new_poses",
+        "t_corr", "r_corr"}, `prob` a `BAProblem` of numpy arrays, obs_lm
+        as int32). A failed dump is logged, never raised."""
+        d = os.environ.get("YA_VO_DUMP_BA_DIR")
+        if not d or self._last_ba_prob is None:
+            return
+        try:
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(
+                d, f"rejected_f{self.frame_id}_{self.n_ba_discarded}.pkl")
+            prob = self._last_ba_prob._replace(
+                obs_lm=self._last_ba_prob.obs_lm.to(torch.int32))
+            prob = ba_window.BAProblem(*(self._np(x) for x in prob))
+            with open(path, "wb") as f:
+                pickle.dump({"prob": prob, "new_poses": new_poses,
+                             "t_corr": t_corr, "r_corr": r_corr}, f)
+            _log.info("dumped gate-rejected BA problem to %s", path)
+        except Exception:
+            _log.exception("BA problem dump failed")
 
     # ------------------------------------------------------------------ #
     def _relocalize(self, kp, desc):
@@ -1203,7 +1351,7 @@ class Frontend:
         the queue and run synchronously."""
         self.frame_id += 1
         self._poll_ba()
-        img_dev = self._to_device(img_dev)
+        img_dev = self._ingest(img_dev)
         if (self.status != VOStatus.TRACKING or self.last_img is None
                 or self._kf_img is None):
             self._pipe_flush()
@@ -1354,7 +1502,7 @@ class Frontend:
         it was. Returns {"device_step_ms", "fps_device", "n_steps"}."""
         if self._d_kf_img is None:
             raise RuntimeError("probe requires an initialized track chain")
-        imgs = [self._to_device(im) for im in imgs]
+        imgs = [self._ingest(im) for im in imgs]
         with self._throwaway_chain():
             for i in range(n_steps + 1):
                 self._dispatch_track(imgs[i % len(imgs)])
@@ -1369,8 +1517,8 @@ class Frontend:
     def finish(self) -> None:
         """End of sequence: resolve every frame still in flight, then drain
         the backend (wait for the solve in flight and apply it, deferred
-        re-launches included)."""
+        re-launches included). A solve that raised re-raises here."""
         self._pipe_flush()
         while self._ba_pending is not None:
-            concurrent.futures.wait([self._ba_pending["fut"]])
+            self._ba_pending["fut"].result()
             self._poll_ba()

@@ -102,7 +102,15 @@ def load_frontend(fe, path: str) -> None:
     """Restore a checkpoint (written by either package) into a freshly
     constructed port Frontend of the same config; images, keypoints and
     descriptors become tensors on `fe.device`, then the device tracking
-    state is rebuilt from the restored host mirrors."""
+    state is rebuilt from the restored host mirrors.
+
+    Older files load with the JAX loader's fallbacks: without
+    `kf_obs_stamp` the observation stamps and the archive keep the fresh
+    frontend's; without `landmark_stamp` the stamps count up from 0 in
+    slot order and nothing is free; without `window_barrier` the barrier
+    is 0; without `track_anchor_uv` the anchor positions are the track
+    table's and the rest of the anchor keyframe context keeps the fresh
+    frontend's."""
     from ya_vo_tpu_torch.tracking.frontend import VOStatus
 
     z = np.load(path)
@@ -133,17 +141,26 @@ def load_frontend(fe, path: str) -> None:
     m.kf_obs_uv[:nk] = z["kf_obs_uv"]
     m.kf_obs_lm[:nk] = z["kf_obs_lm"]
     m.kf_obs_valid[:nk] = z["kf_obs_valid"]
-    m.kf_obs_stamp[:nk] = z["kf_obs_stamp"]
-    arch = ArchiveStore(max(len(z["archive_stamps"]), 4) * 2)
-    if len(z["archive_stamps"]):
-        arch.update_bulk(z["archive_stamps"], z["archive_pos"])
-    m.archive = arch
-    m.landmark_stamp[:nl] = z["landmark_stamp"]
-    m._free = [int(i) for i in z["lm_free"]]
-    m.lm_stamp_counter = int(z["lm_stamp_counter"])
-    m.kf_stamp_counter = int(z["kf_stamp_counter"])
-    m.kf_stamp[:nk] = z["kf_stamp"]
-    m.window_barrier = int(z["window_barrier"])
+    if "kf_obs_stamp" in z:
+        m.kf_obs_stamp[:nk] = z["kf_obs_stamp"]
+        arch = ArchiveStore(max(len(z["archive_stamps"]), 4) * 2)
+        if len(z["archive_stamps"]):
+            arch.update_bulk(z["archive_stamps"], z["archive_pos"])
+        m.archive = arch
+    if "landmark_stamp" in z:
+        m.landmark_stamp[:nl] = z["landmark_stamp"]
+        m._free = [int(i) for i in z["lm_free"]]
+        m.lm_stamp_counter = int(z["lm_stamp_counter"])
+        m.kf_stamp_counter = int(z["kf_stamp_counter"])
+        m.kf_stamp[:nk] = z["kf_stamp"]
+    else:
+        m.landmark_stamp[:nl] = np.arange(nl)
+        m._free = []
+        m.lm_stamp_counter = nl
+        m.kf_stamp_counter = nk
+        m.kf_stamp[:nk] = np.arange(nk)
+    m.window_barrier = (int(z["window_barrier"]) if "window_barrier" in z
+                        else 0)
 
     def keypoints(prefix: str) -> Keypoints:
         return Keypoints(*(tensor_from_numpy(z[f"{prefix}_{k}"], dev)
@@ -154,14 +171,17 @@ def load_frontend(fe, path: str) -> None:
         fe.last_kp = keypoints("last_kp")
         fe.last_desc = tensor_from_numpy(z["last_desc"], dev)
 
-    fe.track_anchor_uv = z["track_anchor_uv"].copy()
-    fe._kf_ref_inliers = int(z["kf_ref_inliers"])
-    fe._kf_pose = z["anchor_kf_pose"].astype(np.float32)
-    if z["anchor_kf_img"].size:
-        fe._kf_img = tensor_from_numpy(z["anchor_kf_img"], dev)
-    if z["anchor_kf_desc"].size:
-        fe._kf_kp = keypoints("anchor_kf_kp")
-        fe._kf_desc = tensor_from_numpy(z["anchor_kf_desc"], dev)
+    if "track_anchor_uv" in z:
+        fe.track_anchor_uv = z["track_anchor_uv"].copy()
+        fe._kf_ref_inliers = int(z["kf_ref_inliers"])
+        fe._kf_pose = z["anchor_kf_pose"].astype(np.float32)
+        if z["anchor_kf_img"].size:
+            fe._kf_img = tensor_from_numpy(z["anchor_kf_img"], dev)
+        if z["anchor_kf_desc"].size:
+            fe._kf_kp = keypoints("anchor_kf_kp")
+            fe._kf_desc = tensor_from_numpy(z["anchor_kf_desc"], dev)
+    else:
+        fe.track_anchor_uv = fe.track_uv.copy()
 
     # rebuild the device-resident tracking state from the restored mirrors
     fe._push_state_to_device()
