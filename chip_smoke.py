@@ -100,8 +100,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      OPTION_KF_TOL of JAX's and ATE_sim3 under OPTION_ATE_FACTOR times
      JAX's, K1 once a fresh or redone dispatch; the normalization's
      device and call time on one frame; (c) phase 6's reset dumps:
-     one npz a reset, named by its frame, with the JAX package's keys.
-Each of phases 4-6, 8-11 zeroes the launch counts just before its run,
+     one npz a reset, named by its frame, with the JAX package's keys;
+ 12. the distributed window BA (`ya_vo_tpu_torch.parallel`), its shards on
+     cuda:0 (one card stands in for DIST_SHARDS, as XLA's virtual devices
+     do in the JAX tests). (a) the landmark-sharded solver at the live
+     backend's shapes and settings (W = map.window_size, L =
+     ba.max_window_landmarks, 8 iterations, two pinned poses, the prior)
+     on `scaling_bench.window_problem`, with 1 and DIST_SHARDS shards,
+     under `torch.cuda.set_sync_debug_mode("error")` (no host read in the
+     GN loop): each within 5e-3 of `solve_window` run for the same 8
+     iterations (tests/test_dist_ba.py's bound; the live early exit stops
+     earlier, its distance printed), DIST_SHARDS shards against 1 at
+     tests/test_torch_ba.py's tolerances for poses (1e-4), costs (rtol
+     1e-4) and reprojections (5e-2 px), the landmarks' largest difference
+     printed beside the 1-shard solve's distance to the float64 one (they
+     move along weakly constrained rays: PERF.md), the DIST_SHARDS-shard
+     solve twice bit for bit; device and call ms a solve beside
+     `solve_window`'s. (b) the 2-D solver at 2x2 and 4x1: within 2e-2 of
+     (a)'s 1-D poses and 5e-3 of the ground truth (tests/test_dist_ba.py's
+     rule). (c) the 1-D solver through `init_multihost` with an explicit
+     127.0.0.1 coordinator and one process (an NCCL group: the all-reduce
+     runs on CUDA tensors), bit-equal to (a)'s; the group destroyed. (d)
+     phase 5's run (VOConfig(), the stamps world) with `landmark_mesh`
+     giving DIST_SHARDS shards: the sharded backend built, resets and
+     solves applied equal to the JAX package's sharded frontend's
+     (JAX_DIST, `port_jax_reference.py --runs dist`), ATE_sim3 under
+     DIST_ATE_MAX; (e) the same with `ba.asynchronous=True`: at least one
+     solve applied, no reset, ATE_sim3 under max(0.05, 3x (d)'s). Then
+     `scaling_bench.measure` with its shards on cuda:0.
+Each of phases 4-6, 8-12 zeroes the launch counts just before its run,
 reads them just after, and fails unless every kernel ran in it. Prints a
 JSON line with the kernels' results, then the card, then, as the last
 line, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -109,9 +136,11 @@ line, {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
+import socket
 import sys
 import tempfile
 import time
@@ -124,6 +153,8 @@ from ya_vo_tpu_torch import _build, create_frontend
 from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.ba import window as ba_window
 from ya_vo_tpu_torch.config import VOConfig, with_option
+from ya_vo_tpu_torch.parallel import dist_ba, scaling_bench
+from ya_vo_tpu_torch.parallel import mesh as mesh_lib
 from ya_vo_tpu_torch.selfcheck import (bits_equal, card_line, check,
                                        device_ms, time_ms)
 from ya_vo_tpu_torch.tracking.frontend import (detect_kwargs,
@@ -222,6 +253,20 @@ RESET_DUMP_KEYS = ("frame_id", "n_flow", "n_ba", "pose", "last_pose",
                    "rel_motion", "flow_ok", "gn_inlier", "keep", "track_uv",
                    "track_lm", "track_valid", "anchor_uv", "lm_pos_dev",
                    "lm_stamp", "lm_alive", "slot_stamp")
+# phase 12: the shards of the distributed window BA, all on cuda:0; the
+# JAX package's frontend with the sharded backend over as many virtual CPU
+# devices on the stamps world at VOConfig(), synchronous and asynchronous
+# (`port_jax_reference.py --runs dist`, the CPU, LK with the TPU kernel's
+# semantics for sync; its RANSAC draws are not the card's, so ATEs compare
+# in size only); the bound of (d)'s ATE_sim3: 2x the first card reading,
+# 0.0148 (JAX 0.0121)
+DIST_SHARDS = 4
+JAX_DIST = {
+    "sync": dict(ate_sim3=0.012125473724055997, resets=0, relocalizations=0,
+                 keyframes=20, ba_solves=6, ba_discarded=0),
+    "async": dict(ate_sim3=0.015482121604940053, resets=0, relocalizations=0,
+                  keyframes=20, ba_solves=6, ba_discarded=0)}
+DIST_ATE_MAX = 0.03
 KITTI_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "configs", "KITTI.json")
 
@@ -782,6 +827,202 @@ def run_cli(card, tmp: str, n: int = CLI_N, textured: dict = TEXTURED,
     return out
 
 
+def card_mesh(n: int, shape=None) -> mesh_lib.Mesh:
+    """n shards on cuda:0: 1-D over "lm", or a `shape` (n_kf, n_lm)."""
+    devs = np.asarray([torch.device("cuda", 0)] * n, dtype=object)
+    if shape is None:
+        return mesh_lib.Mesh(devs, ("lm",))
+    return mesh_lib.Mesh(devs.reshape(shape), ("kf", "lm"))
+
+
+@contextlib.contextmanager
+def shards_on_card(n: int = DIST_SHARDS):
+    """`landmark_mesh` gives n shards on cuda:0, as a host with n cards
+    would give n."""
+    orig = mesh_lib.landmark_mesh
+    mesh_lib.landmark_mesh = lambda *a, **k: card_mesh(n)
+    try:
+        yield
+    finally:
+        mesh_lib.landmark_mesh = orig
+
+
+def _reprojection_px(dprob, cam, a, b) -> float:
+    """Largest distance between two solutions' reprojections (poses,
+    landmarks) over the observations valid at the first."""
+    _, _, ra, valid = dist_ba._residuals(a[0], a[1], *dprob[2:], cam)
+    _, _, rb, _ = dist_ba._residuals(b[0], b[1], *dprob[2:], cam)
+    return float((ra - rb).norm(dim=-1)[valid].max())
+
+
+def _solution(out):
+    """(poses, landmarks) of a solve, gathered on cuda:0."""
+    poses, lms = out[0], out[1]
+    if isinstance(poses, dist_ba.Sharded):
+        poses = poses.gather()
+    return poses, lms.gather()
+
+
+def check_dist_solvers(card):
+    """Phase 12 (a)-(c) (module docstring): a dict of readings each."""
+    cfg = VOConfig()
+    bc = cfg.ba
+    W, L = cfg.map.window_size, bc.max_window_landmarks
+    kw = dict(iters=bc.iters, huber_delta=bc.huber_delta,
+              damping=bc.damping, n_fixed_poses=2,
+              pose_prior_weight=bc.pose_prior_weight)
+    cam = synthetic.kitti_camera()
+    prob = scaling_bench.window_problem(L, W, device="cuda")
+    dprob = dist_ba.from_window_problem(prob)
+    ns = (1, DIST_SHARDS)
+    solve = {n: dist_ba.make_dist_solver(card_mesh(n), cam, **kw)
+             for n in ns}
+    for n in ns:                       # first cuBLAS / cuSOLVER calls
+        solve[n](dprob)
+    torch.cuda.synchronize()
+    # (a) no host read inside a solve
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = {n: solve[n](dprob) for n in ns}
+        again = solve[DIST_SHARDS](dprob)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sol = {n: _solution(out[n]) for n in ns}
+    sw = ba_window.solve_window(prob, cam, rel_tol=-1.0, **kw)
+    sw_live = ba_window.solve_window(prob, cam, **kw)
+    prob64 = ba_window.BAProblem(*(x.double() if x.is_floating_point()
+                                   else x for x in prob))
+    exact = _solution(solve[1](dist_ba.from_window_problem(prob64)))
+    r = dict(window=dict(W=W, L=L, n_obs=int(prob.obs_valid.sum())),
+             sw_n_iters_live=sw_live.n_iters)
+    for n in ns:
+        d = float((sol[n][0] - sw.poses).abs().max())
+        check(d <= 5e-3, f"dist BA {n} shards: poses {d} from solve_window")
+        r[f"poses_vs_solve_window_{n}"] = d
+        r[f"poses_vs_solve_window_live_{n}"] = float(
+            (sol[n][0] - sw_live.poses).abs().max())
+        r[f"cost0_{n}"], r[f"cost1_{n}"] = float(out[n][2]), float(out[n][3])
+    a, b = sol[DIST_SHARDS], sol[1]
+    r["poses_shards_vs_1"] = float((a[0] - b[0]).abs().max())
+    r["cost1_rel_shards_vs_1"] = abs(r[f"cost1_{DIST_SHARDS}"]
+                                     - r["cost1_1"]) / r["cost1_1"]
+    r["cost0_rel_shards_vs_1"] = abs(r[f"cost0_{DIST_SHARDS}"]
+                                     - r["cost0_1"]) / r["cost0_1"]
+    r["reproj_px_shards_vs_1"] = _reprojection_px(dprob, cam, b, a)
+    lm_d = (a[1] - b[1]).norm(dim=-1)
+    r["landmarks_shards_vs_1"] = float((a[1] - b[1]).abs().max())
+    r["landmarks_shards_vs_1_over_1e-3"] = int((lm_d > 1e-3).sum())
+    r["landmarks_1_vs_f64"] = float((b[1].double() - exact[1]).abs().max())
+    r["poses_1_vs_f64"] = float((b[0].double() - exact[0]).abs().max())
+    check(r["poses_shards_vs_1"] <= 1e-4
+          and r["cost1_rel_shards_vs_1"] <= 1e-4
+          and r["cost0_rel_shards_vs_1"] <= 1e-4
+          and r["reproj_px_shards_vs_1"] <= 5e-2,
+          f"dist BA {DIST_SHARDS} shards against 1: {r}")
+    again = _solution(again)
+    check(bits_equal(a[0], again[0]) and bits_equal(a[1], again[1]),
+          "dist BA: two solves of one problem differ")
+    r["bit_identical"] = True
+    for n in ns:
+        r[f"device_ms_{n}"] = device_ms(lambda: solve[n](dprob), reps=3)
+        r[f"call_ms_{n}"] = time_ms(lambda: solve[n](dprob), reps=3)
+    r["solve_window_device_ms"] = device_ms(
+        lambda: ba_window.solve_window(prob, cam, **kw), reps=3)
+    r["solve_window_call_ms"] = time_ms(
+        lambda: ba_window.solve_window(prob, cam, **kw), reps=3)
+
+    r["card"] = card
+    out_b = dict(card=card)
+    # (b) the 2-D solver
+    gt = synthetic.forward_trajectory(W, step=0.5)
+    for shape in ((2, 2), (4, 1)):
+        s2 = dist_ba.make_dist_solver_2d(card_mesh(4, shape), cam, **kw)
+        p2 = _solution(s2(dprob))[0]
+        name = f"2d_{shape[0]}x{shape[1]}"
+        d = float((p2 - a[0]).abs().max())
+        p2 = p2.double().cpu().numpy()
+        gt_err = max(float(np.linalg.norm((p2[w] @ np.linalg.inv(gt[w]))
+                                          [:3, 3])) for w in range(W))
+        check(d <= 2e-2 and gt_err < 5e-3,
+              f"dist BA {name}: {d} from the 1-D poses, {gt_err} from "
+              f"the ground truth")
+        out_b[name] = dict(poses_vs_1d=d, gt_err=gt_err,
+                           call_ms=time_ms(lambda: s2(dprob), reps=3))
+
+    # (c) through a one-process NCCL group
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    mesh_lib.init_multihost(f"127.0.0.1:{port}", num_processes=1,
+                            process_id=0)
+    try:
+        check(mesh_lib.is_distributed_initialized(),
+              "init_multihost: no process group")
+        out_c = dict(backend=str(torch.distributed.get_backend()),
+                     processes=mesh_lib.process_count())
+        c = _solution(solve[DIST_SHARDS](dprob))
+        check(bits_equal(c[0], a[0]) and bits_equal(c[1], a[1]),
+              "dist BA through the NCCL group differs from (a)")
+        out_c["bit_identical"] = True
+    finally:
+        torch.distributed.destroy_process_group()
+    check(not mesh_lib.is_distributed_initialized(),
+          "the process group outlived the check")
+    out_c["card"] = card
+    return r, out_b, out_c
+
+
+def run_dist_frontend(frames, poses_gt, cam, card, asynchronous: bool,
+                      sync_ate=None) -> dict:
+    """Phase 12 (d) (sync, JAX_DIST, DIST_ATE_MAX) or (e) (asynchronous,
+    against (d)'s ATE_sim3 `sync_ate`)."""
+    name = "dist async" if asynchronous else "dist"
+    cfg = with_option(VOConfig(), "ba", asynchronous=asynchronous)
+    _build.reset_launches()
+    with shards_on_card():
+        fe = create_frontend(cfg, cam, device="cuda")
+    check(fe._dist_ba is not None
+          and fe._dist_ba[1].size == DIST_SHARDS,
+          f"{name}: the sharded backend was not built")
+    fe.run(frames[:2])                      # INIT + two-view bootstrap
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = fe.run(frames[2:], pipelined=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = path_launches(name)
+    n_tr = sum(r.status == "TRACKING" and r.frame_id >= 2
+               for r in fe.results)
+    check(traj.shape == (len(frames), 4, 4) and np.isfinite(traj).all(),
+          f"{name}: trajectory shape {traj.shape} or not finite")
+    ate = evaluation.ate_rmse(traj, np.linalg.inv(poses_gt),
+                              with_scale=True)
+    jax = None if JAX_DIST is None else JAX_DIST[
+        "async" if asynchronous else "sync"]
+    check(fe.n_ba_runs >= 1, f"{name}: no solve applied")
+    if asynchronous:
+        check(fe.n_resets == 0, f"{name}: {fe.n_resets} resets")
+        check(ate < max(0.05, 3 * sync_ate),
+              f"{name}: ATE_sim3 {ate} against {sync_ate} synchronous")
+    else:
+        if jax is not None:
+            check(fe.n_resets == jax["resets"]
+                  and fe.n_ba_runs == jax["ba_solves"],
+                  f"{name}: {fe.n_resets} resets and {fe.n_ba_runs} "
+                  f"solves, JAX {jax}")
+        if DIST_ATE_MAX is not None:
+            check(ate < DIST_ATE_MAX,
+                  f"{name}: ATE_sim3 {ate}, bound {DIST_ATE_MAX}")
+    return dict(frames_per_s=n_tr / dt, tracked_frames=n_tr, seconds=dt,
+                ate_sim3=ate, resets=fe.n_resets,
+                relocalizations=fe.n_relocalizations,
+                keyframes=sum(r.is_keyframe for r in fe.results),
+                **_ba_counts(fe), redone_dispatches=fe.n_redone, jax=jax,
+                launches=launches,
+                launches_per_frame=_per_frame(launches, n_tr), card=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -899,6 +1140,22 @@ def main() -> int:
     for name, out in options.items():
         print(f"options {name}: " + json.dumps(out), flush=True)
     print("options reset dumps: " + json.dumps(dumps), flush=True)
+    # 12. the distributed window BA
+    t0 = time.perf_counter()
+    for part, out in zip("abc", check_dist_solvers(card)):
+        print(f"dist ({part}): " + json.dumps(out), flush=True)
+    dist = run_dist_frontend(frames, poses_gt, cam, card, False)
+    print("dist frontend: " + json.dumps(dist), flush=True)
+    dist_async = run_dist_frontend(frames, poses_gt, cam, card, True,
+                                   sync_ate=dist["ate_sim3"])
+    print("dist frontend async: " + json.dumps(dist_async), flush=True)
+    rows = scaling_bench.measure(
+        L=VOConfig().ba.max_window_landmarks, W=VOConfig().map.window_size,
+        device_counts=[1, 2, DIST_SHARDS], mesh_shapes=[(2, 2), (4, 1)],
+        devices=[torch.device("cuda", 0)] * DIST_SHARDS)
+    print("dist scaling (shards sharing cuda:0): " + json.dumps(rows)
+          + "; " + card, flush=True)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"ba_off": launches, "production": prod["launches"],
                "reset": reset["launches"], "textured": textured["launches"],
                "cli_synthetic": cli["synthetic"]["launches"],
@@ -907,7 +1164,9 @@ def main() -> int:
                "long_run": long["launches"],
                "device_apply": device_apply["launches"],
                "anchor": options["anchor"]["launches"],
-               "photometric_norm": options["photometric_norm"]["launches"]}
+               "photometric_norm": options["photometric_norm"]["launches"],
+               "dist": dist["launches"],
+               "dist_async": dist_async["launches"]}
 
     sources = {"fast_score": ("ya_vo_tpu_torch/csrc/fast_score.cu",
                               "ya_vo_tpu/features/pallas_fast.py:70"),

@@ -34,6 +34,16 @@ one of (the first four by default):
              option each (chip_smoke.py phase 11 (b)): `anchor`,
              `tracking.lk_template="anchor"`, and `photometric_norm`,
              `features.photometric_norm=True`; one line each;
+  dist     - the stamps world at VOConfig() with the landmark-sharded
+             backend (chip_smoke.py phase 12 (d) and (e)): a process of its
+             own that sees `chip_smoke.DIST_SHARDS` virtual CPU devices
+             (XLA_FLAGS), where `ba.distributed="auto"` shards every window
+             solve; one line synchronous (`dist_sync`), one with
+             `ba.asynchronous=True` (`dist_async`), which tracks with the
+             JAX package's own CPU LK: the host callback of the TPU
+             kernel's semantics holds an XLA CPU thread while the backend
+             thread's solve waits at its all-reduce for every virtual
+             device, and XLA aborts the process after 40 s of that wait;
   cli      - the JAX CLI, `run_vo.main`, on chip_smoke.py phase 9's
              arguments: `--synthetic` at its defaults (30 frames,
              376x1241), then a KITTI tree (`chip_smoke.write_kitti_tree`)
@@ -54,7 +64,8 @@ single-device solver, as on one card.
 
 Prints one JSON line a run (refine: its own keys): ATE_sim3 (over the
 non-black frames for blackout), resets, relocalizations, keyframes, BA
-solves and discards, the statuses, and the blackout's scale ratio (median
+solves and discards, the statuses (and whether the backend was sharded,
+with how many devices, for dist), and the blackout's scale ratio (median
 step-length ratio after over before, the property of
 tests/test_relocalization.py).
 Imports JAX: it runs where the JAX package runs, never on the card.
@@ -68,6 +79,8 @@ import dataclasses
 import io
 import json
 import os
+import subprocess
+import sys
 import tempfile
 import time
 
@@ -118,6 +131,9 @@ def run(name: str, frames, poses_gt, cam) -> dict:
     if name in OPTIONS:
         section, fields = OPTIONS[name]
         cfg = with_option(cfg, section, **fields)
+    if name == "dist_async":
+        cfg = dataclasses.replace(cfg, ba=dataclasses.replace(
+            cfg.ba, asynchronous=True))
     seq = with_blackout(frames) if name == "blackout" else list(frames)
     fe = Frontend(cfg, cam)
     t0 = time.perf_counter()
@@ -127,6 +143,9 @@ def run(name: str, frames, poses_gt, cam) -> dict:
                keyframes=sum(r.is_keyframe for r in fe.results),
                ba_solves=fe.n_ba_runs, ba_discarded=fe.n_ba_discarded,
                statuses=[r.status for r in fe.results])
+    if name.startswith("dist"):
+        out["sharded_backend"] = fe._dist_ba is not None
+        out["devices"] = len(jax.devices())
     gt_cw = np.linalg.inv(poses_gt)
     if name == "blackout":
         keep = non_black(len(frames))
@@ -267,12 +286,24 @@ def main() -> None:
     ap.add_argument("--refine-tex", type=int, default=1024)
     args = ap.parse_args()
     stamps = synthetic.render_sequence(**chip_smoke.SEQ)
+    jax_lk = jlk.auto_track
     jlk.auto_track = tpu_semantics_lk
     names = args.runs.split(",")
     if "options" in names:
         i = names.index("options")
         names[i:i + 1] = list(chip_smoke.OPTIONS)
     for name in names:
+        if name == "dist":
+            # its own process: this one keeps one device
+            env = dict(os.environ, XLA_FLAGS=(
+                os.environ.get("XLA_FLAGS", "") + " --xla_force_host_"
+                f"platform_device_count={chip_smoke.DIST_SHARDS}").strip())
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--runs", "dist_sync,dist_async"], env=env,
+                           check=True)
+            continue
+        if name == "dist_async":
+            jlk.auto_track = jax_lk
         if name == "cli":
             for out in cli():
                 print(json.dumps(out), flush=True)

@@ -46,9 +46,26 @@ def test_cli_synthetic_matches_jax(tmp_path, capsys, monkeypatch):
     ATE_sim3 within 5e-3 of it (the bootstrap's float32 solve and the
     window solves differ in the last bits, test_torch_frontend.py), both
     under test_cli.py's 0.2; the trajectory file, the plot and a
-    checkpoint that loads back."""
+    checkpoint that loads back. The CLI's VOConfig has the default
+    `ba.distributed="auto"`, so each side runs the landmark-sharded
+    backend: the JAX CLI over the test session's eight virtual devices,
+    the port over eight CPU shards (`landmark_mesh` monkeypatched, as a
+    host with eight cards would give it)."""
     import run_vo
+    from ya_vo_tpu.tracking import frontend as jfrontend
+    from ya_vo_tpu_torch.parallel import mesh as mesh_lib
+    from ya_vo_tpu_torch.tracking import frontend as tfrontend
 
+    made = []
+    for mod in (jfrontend, tfrontend):
+        class Recorded(mod.Frontend):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        monkeypatch.setattr(mod, "Frontend", Recorded)
+    monkeypatch.setattr(mesh_lib, "landmark_mesh", lambda *a, **k: (
+        mesh_lib.Mesh([torch.device("cpu")] * 8, ("lm",))))
     monkeypatch.setattr(jlk, "auto_track", _tpu_semantics_lk([]))
     assert run_vo.main(_synthetic_args(tmp_path, "jax")) == 0
     ref = _last_json(capsys)
@@ -56,6 +73,9 @@ def test_cli_synthetic_matches_jax(tmp_path, capsys, monkeypatch):
     assert trun_vo.main(_synthetic_args(tmp_path, "port")
                         + ["--device", "cpu"]) == 0
     out = _last_json(capsys)
+    assert len(made) == 2
+    assert all(fe._dist_ba is not None for fe in made)
+    assert made[1]._dist_ba[1].size == 8
     assert set(out) == set(ref) == SUMMARY_KEYS
     for k in ("frames", "resets", "ba_runs", "n_keyframes"):
         assert out[k] == ref[k], (k, out, ref)

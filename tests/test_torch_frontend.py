@@ -35,6 +35,7 @@ from ya_vo_tpu.utils import synthetic as jsynthetic
 from ya_vo_tpu.viz import evaluation
 from ya_vo_tpu_torch import _build, create_frontend
 from ya_vo_tpu_torch.geometry import ransac as transac
+from ya_vo_tpu_torch.parallel import mesh as mesh_lib
 from ya_vo_tpu_torch.tracking import frontend as tfrontend
 from ya_vo_tpu_torch.tracking import lk_cuda
 from ya_vo_tpu_torch.utils import convert
@@ -248,8 +249,9 @@ def test_unsupported_configs_raise(monkeypatch):
     """VOConfig() builds (sync window BA, push apply, one device), and so
     do asynchronous window BA, `apply_mode="device"`,
     `lk_template="anchor"` and `photometric_norm=True`; a stereo camera
-    raises, and so does the landmark-sharded solver with more than one
-    card visible, naming its ROADMAP item."""
+    raises. With two cards visible, VOConfig() builds the landmark-sharded
+    backend over the mesh (two CPU shards here, by monkeypatch), and
+    `ba.distributed="off"` the single-device one."""
     cam = tsynthetic.kitti_camera()
     base = make_config()
     create_frontend(VOConfig(), cam, device="cpu")
@@ -269,12 +271,17 @@ def test_unsupported_configs_raise(monkeypatch):
     with pytest.raises(ValueError, match="monocular"):
         create_frontend(dataclasses.replace(base, camera_type="stereo"), cam,
                         device="cpu")
-    # more than one visible card: the landmark-sharded solver is not ported
+    # more than one visible card: the landmark-sharded backend
+    assert create_frontend(VOConfig(), cam, device="cpu")._dist_ba is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="distributed.*item 7"):
-        create_frontend(VOConfig(), cam, device="cpu")
-    create_frontend(VOConfig(ba=dataclasses.replace(ba, distributed="off")),
-                    cam, device="cpu")
+    assert mesh_lib.landmark_mesh().size == 2
+    monkeypatch.setattr(mesh_lib, "landmark_mesh", lambda *a, **k: (
+        mesh_lib.Mesh([torch.device("cpu")] * 2, ("lm",))))
+    fe = create_frontend(VOConfig(), cam, device="cpu")
+    assert fe._dist_ba is not None and fe._dist_ba[1].size == 2
+    fe = create_frontend(VOConfig(ba=dataclasses.replace(
+        ba, distributed="off")), cam, device="cpu")
+    assert fe._dist_ba is None
 
 
 def test_tracking_failure_resets():
@@ -302,12 +309,16 @@ def test_tf32_off():
 def test_port_runs_without_jax():
     """Every module of the port (window BA, the textured renderer, offline
     refinement, the selfcheck, the bench, the CLI, the long run, its I/O,
-    checkpoint and viewers included) and chip_smoke.py imported, VOConfig() unmodified
-    run for four frames and refined offline, and a textured frame
-    rendered, in a fresh interpreter: no JAX and nothing of the JAX
-    package is loaded."""
+    checkpoint and viewers, the distributed BA, its mesh and harness and
+    the profiling utilities included) and chip_smoke.py imported,
+    VOConfig() unmodified run for four frames and refined offline, the
+    same with the sharded backend over two CPU shards, a sharded solve,
+    and a textured frame rendered, in a fresh interpreter: no JAX and
+    nothing of the JAX package is loaded."""
     code = (
         "import sys, importlib, pkgutil\n"
+        "import torch\n"
+        "torch.set_num_threads(1)  # beside the suite's other workers\n"
         "import chip_smoke, ya_vo_tpu_torch\n"
         "import ya_vo_tpu_torch.ba.window, ya_vo_tpu_torch.ba.global_refine\n"
         "import ya_vo_tpu_torch.utils.scene, ya_vo_tpu_torch.selfcheck\n"
@@ -315,6 +326,10 @@ def test_port_runs_without_jax():
         "import ya_vo_tpu_torch.longrun\n"
         "import ya_vo_tpu_torch.io.kitti, ya_vo_tpu_torch.utils.checkpoint\n"
         "import ya_vo_tpu_torch.viz.render, ya_vo_tpu_torch.viz.live\n"
+        "import ya_vo_tpu_torch.parallel.mesh as mesh_lib\n"
+        "import ya_vo_tpu_torch.parallel.dist_ba as dist_ba\n"
+        "import ya_vo_tpu_torch.parallel.scaling_bench as scaling_bench\n"
+        "import ya_vo_tpu_torch.utils.profiling\n"
         "for m in pkgutil.walk_packages(ya_vo_tpu_torch.__path__,\n"
         "                               'ya_vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -329,6 +344,15 @@ def test_port_runs_without_jax():
         "assert len(fe.results) == 4\n"
         "from ya_vo_tpu_torch.ba.global_refine import global_refine\n"
         "assert global_refine(fe).shape == (4, 4, 4)\n"
+        "mesh_lib.landmark_mesh = lambda *a, **k: mesh_lib.Mesh(\n"
+        "    [torch.device('cpu')] * 2, ('lm',))\n"
+        "fe = create_frontend(VOConfig(), cam, device='cpu')\n"
+        "assert fe._dist_ba is not None\n"
+        "fe.run(imgs)\n"
+        "cam2, prob = scaling_bench.build_problem(L=64, W=2)\n"
+        "assert dist_ba.make_dist_solver(mesh_lib.landmark_mesh(), cam2,\n"
+        "                                iters=1)(prob)[1].gather().shape \\\n"
+        "    == (64, 3)\n"
         "from ya_vo_tpu_torch.utils.scene import TexturedSequence\n"
         "seq = TexturedSequence(n_frames=2, height=32, width=96, "
         "tex_size=64, mip_levels=2, device='cpu')\n"

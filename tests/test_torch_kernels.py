@@ -8,9 +8,11 @@ no JAX, which tests/conftest.py imports, so run them there with
 from the repository root (the kernel checks and their tolerances are
 `ya_vo_tpu_torch/selfcheck.py`'s). This file imports no JAX. Also here: the
 card's float64 8-point null vector (geometry/epipolar.py), alone and in the
-textured world's bootstrap against a float64 solve on the CPU, and the
+textured world's bootstrap against a float64 solve on the CPU, the
 CPU-side contract of the wrappers (a CPU tensor takes the plain version and
-launches nothing).
+launches nothing), and the distributed window BA with its shards on one
+card (chip_smoke.py phase 12 (a) and (c) at a small size, and the sharded
+solve on the backend stream).
 """
 
 import json
@@ -491,6 +493,104 @@ def test_backend_stream_solve_equals_default_stream(cuda):
     the default-stream one bit for bit (a missing wait on the frontend
     stream's event would read the problem before its uploads landed)."""
     (side, _), (default, _), stream = _backend_vs_default_stream(cuda)
+    assert stream is not None and stream != torch.cuda.default_stream()
+    for a, b in zip(side, default):
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def _small_window(cuda):
+    """A window of 512 landmarks and 4 keyframes on the card, the live
+    backend's solve settings, and 1- and 4-shard solvers on cuda:0."""
+    from chip_smoke import card_mesh
+    from ya_vo_tpu_torch.parallel import dist_ba, scaling_bench
+
+    bc = VOConfig().ba
+    kw = dict(iters=bc.iters, huber_delta=bc.huber_delta,
+              damping=bc.damping, n_fixed_poses=2,
+              pose_prior_weight=bc.pose_prior_weight)
+    cam = synthetic.kitti_camera()
+    prob = scaling_bench.window_problem(512, 4, device=cuda)
+    solve = {n: dist_ba.make_dist_solver(card_mesh(n), cam, **kw)
+             for n in (1, 4)}
+    return prob, dist_ba.from_window_problem(prob), cam, kw, solve
+
+
+@pytest.mark.cuda
+def test_dist_solver_on_the_card(cuda):
+    """Phase 12 (a) of chip_smoke.py at a small size: the landmark-sharded
+    solver reads nothing back to the host inside a solve (sync debug mode
+    "error"); 4 shards on cuda:0 against 1 within 1e-4 in poses, rtol 1e-4
+    in costs and 5e-2 px in reprojections; both within 5e-3 of
+    `solve_window` run for the same iterations; a second 4-shard solve bit
+    for bit."""
+    from chip_smoke import _reprojection_px, _solution
+    from ya_vo_tpu_torch.ba import window as ba_window
+
+    prob, dprob, cam, kw, solve = _small_window(cuda)
+    for s in solve.values():
+        s(dprob)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = {n: s(dprob) for n, s in solve.items()}
+        again = solve[4](dprob)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    one, four = _solution(out[1]), _solution(out[4])
+    assert float((four[0] - one[0]).abs().max()) <= 1e-4
+    for i in (2, 3):
+        assert abs(float(out[4][i]) - float(out[1][i])) \
+            <= 1e-4 * float(out[1][i])
+    assert _reprojection_px(dprob, cam, one, four) <= 5e-2
+    sw = ba_window.solve_window(prob, cam, rel_tol=-1.0, **kw)
+    for sol in (one, four):
+        assert float((sol[0] - sw.poses).abs().max()) <= 5e-3
+    again = _solution(again)
+    assert sc.bits_equal(again[0], four[0])
+    assert sc.bits_equal(again[1], four[1])
+
+
+@pytest.mark.cuda
+def test_dist_solver_through_an_nccl_group(cuda):
+    """Phase 12 (c) at a small size: through `init_multihost` with a
+    127.0.0.1 coordinator and one process (NCCL for the CUDA tensors), the
+    4-shard solve all-reduces and equals the local one bit for bit; the
+    group is destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from chip_smoke import _solution
+    from ya_vo_tpu_torch.parallel import mesh as mesh_lib
+
+    _, dprob, _, _, solve = _small_window(cuda)
+    local = _solution(solve[4](dprob))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    mesh_lib.init_multihost(f"127.0.0.1:{port}", num_processes=1,
+                            process_id=0)
+    try:
+        assert mesh_lib.is_distributed_initialized()
+        grouped = _solution(solve[4](dprob))
+    finally:
+        dist.destroy_process_group()
+    assert not mesh_lib.is_distributed_initialized()
+    assert sc.bits_equal(grouped[0], local[0])
+    assert sc.bits_equal(grouped[1], local[1])
+
+
+@pytest.mark.cuda
+def test_sharded_backend_stream_solve_equals_default_stream(cuda):
+    """`test_backend_stream_solve_equals_default_stream` with the frontend
+    built over 4 shards on cuda:0 (`landmark_mesh` as chip_smoke.py phase
+    12 gives it): the sharded solve on the backend worker's stream equals
+    the one on the calling thread's stream bit for bit."""
+    from chip_smoke import shards_on_card
+
+    with shards_on_card():
+        (side, _), (default, _), stream = _backend_vs_default_stream(cuda)
     assert stream is not None and stream != torch.cuda.default_stream()
     for a, b in zip(side, default):
         assert a.dtype == b.dtype == np.float32 and a.shape == b.shape

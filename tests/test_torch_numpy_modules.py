@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's numpy modules (`config`,
-`worldmap/mapstore`, `viz/evaluation`) against the originals: the same
-defaults and loaded configs, the same map-store arrays after one seeded
-sequence of operations, and the same trajectory metrics, exactly. The
+`worldmap/mapstore`, `viz/evaluation`, `utils/synthetic.project_tracks`)
+against the originals: the same defaults and loaded configs, the same
+map-store arrays after one seeded sequence of operations, the same
+trajectory metrics and projected tracks, exactly. The
 copies of `io/prefetch`, `io/native_loader`, `viz/render` and `viz/live`
 are the originals' text, up to their one import of the package."""
 
@@ -109,6 +110,24 @@ def test_evaluation_equal(metric):
     t, j = metric(tevaluation, est, gt), metric(jevaluation, est, gt)
     np.testing.assert_array_equal(np.asarray(t), np.asarray(j))
     assert np.all(np.isfinite(np.asarray(t)))
+
+
+@pytest.mark.parametrize("margin", [5, 20])
+def test_project_tracks_equal(margin):
+    from ya_vo_tpu.utils import synthetic as jsynthetic
+    from ya_vo_tpu_torch.utils import synthetic as tsynthetic
+
+    lms = jsynthetic.random_landmarks(300, seed=4)
+    lms[:5, 2] = -lms[:5, 2]                     # behind the camera
+    poses = jsynthetic.forward_trajectory(6, step=0.5, yaw_rate=0.01)
+    ref = jsynthetic.project_tracks(lms, poses, jsynthetic.kitti_camera(),
+                                    376, 1241, margin=margin)
+    out = tsynthetic.project_tracks(lms, poses, tsynthetic.kitti_camera(),
+                                    376, 1241, margin=margin)
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert 0 < out[1].sum() < out[1].size
 
 
 @pytest.mark.parametrize("module,import_line", [

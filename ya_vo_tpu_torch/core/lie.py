@@ -86,7 +86,8 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     W2 = W @ W
     V = _eye3_like(W) + B[..., None, None] * W + C[..., None, None] * W2
-    v = torch.linalg.solve(V, T[..., :3, 3:4])[..., 0]
+    # solve_ex: no error check, which would read the card back to the host
+    v = torch.linalg.solve_ex(V, T[..., :3, 3:4])[0][..., 0]
     return torch.cat([v, w], dim=-1)
 
 
@@ -96,8 +97,9 @@ def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (4,))
+    # [0, 0, 0, 1] made on the device: no copy from the host
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3].expand(
+        batch + (4,))
     return torch.cat([top, bottom[..., None, :]], dim=-2)
 
 

@@ -40,8 +40,14 @@ it done; `finish()` and the staleness wait, which block on it, re-raise
 its error in the caller's thread. A result from before a keyframe-slot
 shift is dropped without being read.
 
-The landmark-sharded solver over several cards raises
-`NotImplementedError` instead of running a partial version.
+With `ba.distributed != "off"` and a `parallel.mesh.landmark_mesh` of two
+or more shards (several visible cards), every window solve runs on the
+landmark-sharded solver (`parallel/dist_ba.make_dist_solver`), the
+reference's `_maybe_build_dist_ba`: the problem is converted to the
+landmark-major layout on the host, after the backend stream has waited on
+its `ready` event, so each shard's upload follows the problem's, and the
+landmark shards are gathered on the frontend's device, on the current
+stream, before the result is read.
 """
 
 from __future__ import annotations
@@ -68,15 +74,13 @@ from ya_vo_tpu_torch.core.camera import Camera
 from ya_vo_tpu_torch.features import brief, fast, matching
 from ya_vo_tpu_torch.geometry import ransac
 from ya_vo_tpu_torch.geometry.triangulation import triangulate_fast
+from ya_vo_tpu_torch.parallel import dist_ba
+from ya_vo_tpu_torch.parallel import mesh as mesh_lib
 from ya_vo_tpu_torch.tracking import lk_cuda, pose_solver
 from ya_vo_tpu_torch.utils.convert import DEVICE_KEYS, offsets_from_numpy
 from ya_vo_tpu_torch.worldmap.mapstore import MapStore
 
 _log = logging.getLogger("ya_vo_tpu_torch.frontend")
-
-
-def _not_yet(item: int) -> str:
-    return f"not ported yet; queued in ROADMAP.md (Queue 1, item {item})"
 
 
 # names of the per-frame record the host pulls, in the step's output order
@@ -110,14 +114,6 @@ def _check_supported(config: VOConfig) -> None:
     if config.camera_type != "mono":
         raise ValueError(f"camera_type={config.camera_type!r} unsupported: "
                          f"this pipeline is monocular")
-    ba = config.ba
-    if (ba.enabled and ba.distributed != "off"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"ba.distributed={ba.distributed!r} with "
-            f"{torch.cuda.device_count()} CUDA devices visible (the "
-            f"landmark-sharded solver) is {_not_yet(7)}; set "
-            f"ba.distributed='off' or expose one device")
 
 
 def photometric_normalize(img: torch.Tensor) -> torch.Tensor:
@@ -277,6 +273,11 @@ class Frontend:
         # dispatch
         self._state_dirty = False
         self._pending_q: deque = deque()
+        # distributed backend: the window's landmark axis sharded over the
+        # mesh (BAConfig.distributed); (solve_fn, mesh) or None
+        self._dist_ba = None
+        if config.ba.enabled and config.ba.distributed != "off":
+            self._maybe_build_dist_ba()
         if config.ba.enabled and config.ba.asynchronous:
             # warm the solver's first launches on the backend stream
             self._ba_executor.submit(self._precompile_window_ba)
@@ -807,16 +808,51 @@ class Frontend:
                               anchor_old, ms)
 
     def _solve(self, prob):
-        """One window solve on the current stream, read back to numpy:
-        ((poses, landmarks), wall ms)."""
+        """One window solve on the current stream (sharded over the mesh
+        when `_dist_ba` is built), read back to numpy: ((poses, landmarks),
+        wall ms)."""
         bc = self.cfg.ba
         t0 = time.perf_counter()
-        res = ba_window.solve_window(
-            prob, self.cam, iters=bc.iters, huber_delta=bc.huber_delta,
+        if self._dist_ba is not None:
+            poses, lms = self._solve_window_distributed(prob)
+        else:
+            res = ba_window.solve_window(
+                prob, self.cam, iters=bc.iters, huber_delta=bc.huber_delta,
+                damping=bc.damping, n_fixed_poses=2,
+                pose_prior_weight=bc.pose_prior_weight)
+            poses, lms = res.poses, res.landmarks
+        out = (self._np(poses), self._np(lms))
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def _maybe_build_dist_ba(self) -> None:
+        """Build the landmark-sharded window solver when the mesh
+        (`parallel.mesh.landmark_mesh` of the frontend's device type: the
+        visible cards) holds at least two shards and
+        `max_window_landmarks` divides evenly over them
+        (BAConfig.distributed="auto"). Per GN iteration only the reduced
+        camera system (O((6W)^2) floats) and the costs cross devices.
+        Falls back silently to the single-device solver otherwise."""
+        bc = self.cfg.ba
+        m = mesh_lib.landmark_mesh(device_type=self.device.type)
+        n_shards = m.size * mesh_lib.process_count()
+        if m.size < 2 or bc.max_window_landmarks % n_shards:
+            return
+        solve = dist_ba.make_dist_solver(
+            m, self.cam, iters=bc.iters, huber_delta=bc.huber_delta,
             damping=bc.damping, n_fixed_poses=2,
             pose_prior_weight=bc.pose_prior_weight)
-        out = (self._np(res.poses), self._np(res.landmarks))
-        return out, (time.perf_counter() - t0) * 1e3
+        self._dist_ba = (solve, m)
+        _log.info("backend BA: window landmark axis sharded over %d "
+                  "shards (BAConfig.distributed=%s)", n_shards,
+                  bc.distributed)
+
+    def _solve_window_distributed(self, prob):
+        """One window solve on the mesh: the keyframe-major snapshot in the
+        landmark-major layout, solved, the landmark shards gathered on the
+        frontend's device. Returns (poses, landmarks) tensors."""
+        solve, _ = self._dist_ba
+        poses, lms, _c0, _c1 = solve(dist_ba.from_window_problem(prob))
+        return poses, lms.gather(self.device)
 
     def _backend_stream(self):
         """The worker's launch context: the backend stream on the card (the
@@ -834,9 +870,10 @@ class Frontend:
             return self._solve(prob)
 
     def _precompile_window_ba(self) -> None:
-        """Warm the solver on the backend (its first cuBLAS/cuSOLVER calls
-        on the backend stream) with an all-invalid problem of the session's
-        window shapes; runs on the worker at construction."""
+        """Warm the solver (the sharded one when built) on the backend (its
+        first cuBLAS/cuSOLVER calls on the backend stream) with an
+        all-invalid problem of the session's window shapes; runs on the
+        worker at construction."""
         try:
             bc = self.cfg.ba
             W, L = self.cfg.map.window_size, bc.max_window_landmarks

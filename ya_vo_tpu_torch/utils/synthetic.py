@@ -1,8 +1,9 @@
 """Synthetic KITTI-shaped scenes for tests and the GPU smoke run.
 
 A numpy port of `ya_vo_tpu/utils/synthetic.py` that imports no JAX: the
-same landmark draw, trajectory and stamp renderer, so a sequence rendered
-here is byte-identical to the JAX module's for the same arguments.
+same landmark draw, trajectory, track projection and stamp renderer, so a
+sequence rendered here is byte-identical to the JAX module's for the same
+arguments.
 """
 
 from __future__ import annotations
@@ -52,6 +53,38 @@ def forward_trajectory(n_frames: int, step: float = 0.8,
         pos = pos + R_cw @ np.array([0.0, 0.0, step])
         yaw += yaw_rate
     return poses
+
+
+def project_tracks(
+    landmarks: np.ndarray, poses_wc: np.ndarray, cam: Camera,
+    height: int, width: int, margin: int = 20,
+):
+    """Project every landmark into every frame.
+
+    Returns (uv [F, N, 2] float32, vis [F, N] bool) — vis requires positive
+    depth and in-bounds projection with `margin`.
+    """
+    F = poses_wc.shape[0]
+    N = landmarks.shape[0]
+    uv = np.zeros((F, N, 2), dtype=np.float32)
+    vis = np.zeros((F, N), dtype=bool)
+    fx = float(cam.fx); fy = float(cam.fy)
+    cx = float(cam.cx); cy = float(cam.cy)
+    for f in range(F):
+        R = poses_wc[f, :3, :3]
+        t = poses_wc[f, :3, 3]
+        pc = landmarks @ R.T + t
+        z = pc[:, 2]
+        ok = z > 0.25
+        zs = np.where(ok, z, 1.0)
+        u = fx * pc[:, 0] / zs + cx
+        v = fy * pc[:, 1] / zs + cy
+        uv[f] = np.stack([u, v], axis=-1)
+        vis[f] = (
+            ok & (u >= margin) & (u < width - margin)
+            & (v >= margin) & (v < height - margin)
+        )
+    return uv, vis
 
 
 _STAMP_HALF = 8  # stamp is (2*_STAMP_HALF+1)^2
