@@ -127,9 +127,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (JAX_DIST, `port_jax_reference.py --runs dist`), ATE_sim3 under
      DIST_ATE_MAX; (e) the same with `ba.asynchronous=True`: at least one
      solve applied, no reset, ATE_sim3 under max(0.05, 3x (d)'s). Then
-     `scaling_bench.measure` with its shards on cuda:0.
+     `scaling_bench.measure` with its shards on cuda:0. (f) the 2-D
+     solver at 2x2 in two processes (`chip_smoke.dist_2d_worker`, JAX's
+     process-major layout, two shards each on cuda:0) joined by gloo,
+     which `init_multihost` picks as NCCL refuses two ranks on one card
+     (the backend is printed): poses,
+     costs and reprojections against the 2x2 solve in this process at
+     (a)'s tolerances, and ms a GN iteration of both;
+ 13. the profiling and diagnosis tools: `profile_step` (its fused step
+     bit-equal to the frontend's own dispatch on the same state, its
+     components' values equal to the step's, then its rows: call ms,
+     device ms, cudaLaunchKernel and kernel launches a call),
+     `bench_lk` at 3 levels and 30 iterations (K1's device time within
+     LK_TIME_TOL of phase 3's), `profile_bench` on the stamps world
+     (per-frame ms and the phases) and `diag_primary` over the first
+     DIAG_N frames of phase 8's world (its record and summary); each
+     part's seconds.
 Each of phases 4-6, 8-12 zeroes the launch counts just before its run,
-reads them just after, and fails unless every kernel ran in it. Prints a
+reads them just after, and fails unless every kernel ran in it; so do
+phase 13's `profile_bench` and `diag_primary` runs (the latter's counts
+are its pipelined run's, after its warm frames and `precompile`, which
+`diag_primary.main` zeroes and returns). Prints a
 JSON line with the kernels' results, then the card, then, as the last
 line, {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -141,6 +159,7 @@ import json
 import os
 import shutil
 import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -150,6 +169,8 @@ import numpy as np
 import torch
 
 from ya_vo_tpu_torch import _build, create_frontend
+from ya_vo_tpu_torch import (bench_lk, diag_primary, profile_bench,
+                             profile_step)
 from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.ba import window as ba_window
 from ya_vo_tpu_torch.config import VOConfig, with_option
@@ -863,14 +884,19 @@ def _solution(out):
     return poses, lms.gather()
 
 
-def check_dist_solvers(card):
-    """Phase 12 (a)-(c) (module docstring): a dict of readings each."""
+def dist_settings():
+    """(W, L, the solvers' keywords): the live backend's window shapes and
+    settings (two pinned poses, the prior)."""
     cfg = VOConfig()
     bc = cfg.ba
-    W, L = cfg.map.window_size, bc.max_window_landmarks
-    kw = dict(iters=bc.iters, huber_delta=bc.huber_delta,
-              damping=bc.damping, n_fixed_poses=2,
-              pose_prior_weight=bc.pose_prior_weight)
+    return cfg.map.window_size, bc.max_window_landmarks, dict(
+        iters=bc.iters, huber_delta=bc.huber_delta, damping=bc.damping,
+        n_fixed_poses=2, pose_prior_weight=bc.pose_prior_weight)
+
+
+def check_dist_solvers(card):
+    """Phase 12 (a)-(c) (module docstring): a dict of readings each."""
+    W, L, kw = dist_settings()
     cam = synthetic.kitti_camera()
     prob = scaling_bench.window_problem(L, W, device="cuda")
     dprob = dist_ba.from_window_problem(prob)
@@ -971,6 +997,205 @@ def check_dist_solvers(card):
           "the process group outlived the check")
     out_c["card"] = card
     return r, out_b, out_c
+
+
+DIST_2D_REPEATS = 3
+DIST_2D_TIMEOUT = 300
+
+
+def dist_2d_worker(pid: int, coordinator: str, out: str) -> None:
+    """Phase 12 (f), process `pid` of two: a process group (gloo, which
+    `init_multihost` picks and logs: the processes share cuda:0, where
+    NCCL refuses two ranks), the 2-D solver at 2x2
+    over both processes' two shards on cuda:0 (JAX's process-major
+    layout), solved once, then DIST_2D_REPEATS times on the clock; process
+    0 saves the gathered solution, the costs, ms a GN iteration and the
+    group's backend to `out`."""
+    mesh_lib.init_multihost(coordinator, num_processes=2, process_id=pid)
+    try:
+        W, L, kw = dist_settings()
+        dprob = dist_ba.from_window_problem(
+            scaling_bench.window_problem(L, W, device="cuda"))
+        cuda0 = torch.device("cuda", 0)
+        solve = dist_ba.make_dist_solver_2d(
+            mesh_lib.process_mesh([cuda0, cuda0], (2, 2)),
+            synthetic.kitti_camera(), **kw)
+        res = solve(dprob)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIST_2D_REPEATS):
+            solve(dprob)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / DIST_2D_REPEATS / kw["iters"]
+        poses, lms = res[0].gather(), res[1].gather()
+        if pid == 0:
+            np.savez(out, poses=poses.cpu().numpy(),
+                     landmarks=lms.cpu().numpy(),
+                     costs=np.array([float(res[2]), float(res[3])]),
+                     ms_per_gn_iter=ms,
+                     backend=str(torch.distributed.get_backend()))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def check_dist_2d_processes(card) -> dict:
+    """Phase 12 (f): `dist_2d_worker` in two processes against the 2-D
+    solver at 2x2 in this process (its four shards on cuda:0): poses
+    within 1e-4, costs within rtol 1e-4, reprojections within 5e-2 px
+    (phase (a)'s tolerances); ms a GN iteration of both."""
+    W, L, kw = dist_settings()
+    cam = synthetic.kitti_camera()
+    dprob = dist_ba.from_window_problem(
+        scaling_bench.window_problem(L, W, device="cuda"))
+    s1 = dist_ba.make_dist_solver_2d(card_mesh(4, (2, 2)), cam, **kw)
+    one = s1(dprob)
+    ref = _solution(one)
+    one_ms = time_ms(lambda: s1(dprob), reps=DIST_2D_REPEATS) / kw["iters"]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "SLURM_NTASKS", "SLURM_NPROCS")}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dist_2d.npz")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             f"chip_smoke.dist_2d_worker(int(sys.argv[1]), {coord!r}, "
+             f"{out!r})", str(pid)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in (0, 1)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=DIST_2D_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for pid, (p, text) in enumerate(zip(procs, texts)):
+            check(p.returncode == 0,
+                  f"dist (f): process {pid} failed:\n{text[-4000:]}")
+        with np.load(out) as z:
+            got = {k: z[k] for k in z.files}
+    poses = torch.as_tensor(got["poses"]).cuda()
+    lms = torch.as_tensor(got["landmarks"]).cuda()
+    c0, c1 = (float(c) for c in got["costs"])
+    r = dict(backend=str(got["backend"]), processes=2,
+             collectives=("NCCL" if "nccl" in str(got["backend"])
+                          else "staged through host memory"),
+             poses_vs_1process=float((poses - ref[0]).abs().max()),
+             cost0_rel=abs(c0 - float(one[2])) / float(one[2]),
+             cost1_rel=abs(c1 - float(one[3])) / float(one[3]),
+             reproj_px=_reprojection_px(dprob, cam, ref, (poses, lms)),
+             landmarks_vs_1process=float((lms - ref[1]).abs().max()),
+             ms_per_gn_iter=float(got["ms_per_gn_iter"]),
+             ms_per_gn_iter_1process=one_ms, card=card)
+    check(r["poses_vs_1process"] <= 1e-4 and r["cost0_rel"] <= 1e-4
+          and r["cost1_rel"] <= 1e-4 and r["reproj_px"] <= 5e-2,
+          f"dist (f): two processes against one: {r}")
+    return r
+
+
+# phase 13: diag_primary's frames; profile_step's calls a row (its
+# profiler sessions over the fused step's ~6,000 launches a call take
+# seconds each); the bound on bench_lk's K1 against phase 3's
+DIAG_N = 60
+TOOL_REPS = 3
+LK_TIME_TOL = 0.2
+
+
+def run_tools(frames, cam, card, lk_device_ms: float) -> dict:
+    """Phase 13 (module docstring): the readings of each tool."""
+    out = {}
+    # profile_step: the fused step on the snapshot against the frontend's
+    # own dispatch on the same state, its components' values against the
+    # step's, then the rows
+    t0 = time.perf_counter()
+    fe, img = profile_step.setup("cuda")
+    st = profile_step.snapshot(fe, img)
+    x = profile_step.chain(fe, st)
+    kp, desc, _, rec = profile_step.fused_step(fe, st)
+    with fe._throwaway_chain():
+        own = fe._dispatch_track(img)
+    host, event = own["pull"]
+    if event is not None:
+        event.synchronize()
+    check(all(bits_equal(a.cpu(), b) for a, b in zip(rec, host))
+          and bits_equal(kp.uv, own["kp"].uv)
+          and bits_equal(desc, own["desc"]),
+          "profile_step: the fused step differs from the frontend's")
+    diffs = profile_step.compare(x, kp, desc, rec)
+    check(not diffs, f"profile_step: components differ from the fused "
+                     f"step: {diffs}")
+    rows = []
+    for name, fn in profile_step.components(fe, st, x):
+        row = profile_step.measure(fn, "cuda", TOOL_REPS)
+        print("profile_step " + profile_step.format_row(name, row),
+              flush=True)
+        rows.append(dict(name=name, **row))
+    check(rows[0]["kernel_launches"] == 4,
+          f"profile_step: the fused step launched {rows[0]['kernel_launches']}"
+          f" hand-written kernels a call, not 4 (K2, select, K1, K3)")
+    out["profile_step"] = dict(rows=rows, seconds=time.perf_counter() - t0)
+    del fe, st, x
+    # bench_lk at 3 levels, 30 iterations against phase 3's K1
+    t0 = time.perf_counter()
+    (row,) = bench_lk.run("cuda", iters=(30,), levels=(3,))
+    print("bench_lk " + bench_lk.format_row(row), flush=True)
+    check(abs(row["kernel_device_ms"] - lk_device_ms)
+          <= LK_TIME_TOL * lk_device_ms,
+          f"bench_lk: K1 {row['kernel_device_ms']} ms against phase 3's "
+          f"{lk_device_ms}")
+    out["bench_lk"] = dict(row, phase3_device_ms=lk_device_ms,
+                           seconds=time.perf_counter() - t0)
+    # profile_bench on the stamps world
+    t0 = time.perf_counter()
+    fe = create_frontend(profile_step.config(*frames[0].shape), cam,
+                         device="cuda")
+    for img in frames[:profile_bench.WARM]:
+        fe.process(img)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = profile_bench.drive(fe, frames[profile_bench.WARM:])
+    torch.cuda.synchronize()
+    launches = path_launches("profile_bench")
+    for line in profile_bench.summary(fe, res):
+        print("profile_bench " + line, flush=True)
+    n = len(frames) - profile_bench.WARM
+    check(len(res["times"]) == n and len(fe.trajectory) == len(frames),
+          f"profile_bench: {len(res['times'])} steps, "
+          f"{len(fe.trajectory)} poses")
+    out["profile_bench"] = dict(
+        phases={k: dict(n=len(v), sum_ms=sum(v))
+                for k, v in res["phase"].items()},
+        mean_ms=float(np.mean(res["times"])), launches=launches,
+        frames=n, launches_per_frame=_per_frame(launches, n),
+        resets=fe.n_resets, seconds=time.perf_counter() - t0)
+    del fe
+    # diag_primary over the first DIAG_N frames of the bench's world
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the counts of the pipelined run alone (frames WARM..DIAG_N-1),
+        # which `diag_primary.main` zeroes before it and returns
+        rec, fe, launches = diag_primary.main(
+            ["--frames", str(DIAG_N), "--out",
+             os.path.join(tmp, "diag.json")])
+        launches = path_launches("diag_primary", launches)
+        check(os.path.exists(os.path.join(tmp, "diag.json.npz")),
+              "diag_primary: no trajectory file")
+    check(len(rec["rows"]) == DIAG_N and np.isfinite(rec["ate"]),
+          f"diag_primary: {len(rec['rows'])} rows, ATE {rec['ate']}")
+    out["diag_primary"] = dict(
+        {k: v for k, v in rec.items() if k != "rows"}, launches=launches,
+        frames=DIAG_N - diag_primary.WARM,
+        launches_per_frame=_per_frame(launches, DIAG_N - diag_primary.WARM),
+        solves=fe.n_ba_runs, seconds=time.perf_counter() - t0)
+    del fe
+    for v in out.values():
+        v["card"] = card
+    return out
 
 
 def run_dist_frontend(frames, poses_gt, cam, card, asynchronous: bool,
@@ -1149,6 +1374,10 @@ def main() -> int:
     dist_async = run_dist_frontend(frames, poses_gt, cam, card, True,
                                    sync_ate=dist["ate_sim3"])
     print("dist frontend async: " + json.dumps(dist_async), flush=True)
+    t1 = time.perf_counter()
+    print("dist (f): " + json.dumps(check_dist_2d_processes(card)),
+          flush=True)
+    print(f"dist (f): {time.perf_counter() - t1:.1f} s", flush=True)
     rows = scaling_bench.measure(
         L=VOConfig().ba.max_window_landmarks, W=VOConfig().map.window_size,
         device_counts=[1, 2, DIST_SHARDS], mesh_shapes=[(2, 2), (4, 1)],
@@ -1156,6 +1385,12 @@ def main() -> int:
     print("dist scaling (shards sharing cuda:0): " + json.dumps(rows)
           + "; " + card, flush=True)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    # 13. the profiling and diagnosis tools
+    t0 = time.perf_counter()
+    tools = run_tools(frames, cam, card, results["lk_level"]["device_ms"])
+    for name, out in tools.items():
+        print(f"tools {name}: " + json.dumps(out), flush=True)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"ba_off": launches, "production": prod["launches"],
                "reset": reset["launches"], "textured": textured["launches"],
                "cli_synthetic": cli["synthetic"]["launches"],
@@ -1166,7 +1401,9 @@ def main() -> int:
                "anchor": options["anchor"]["launches"],
                "photometric_norm": options["photometric_norm"]["launches"],
                "dist": dist["launches"],
-               "dist_async": dist_async["launches"]}
+               "dist_async": dist_async["launches"],
+               "profile_bench": tools["profile_bench"]["launches"],
+               "diag_primary": tools["diag_primary"]["launches"]}
 
     sources = {"fast_score": ("ya_vo_tpu_torch/csrc/fast_score.cu",
                               "ya_vo_tpu/features/pallas_fast.py:70"),

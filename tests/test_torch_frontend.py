@@ -309,8 +309,9 @@ def test_tf32_off():
 def test_port_runs_without_jax():
     """Every module of the port (window BA, the textured renderer, offline
     refinement, the selfcheck, the bench, the CLI, the long run, its I/O,
-    checkpoint and viewers, the distributed BA, its mesh and harness and
-    the profiling utilities included) and chip_smoke.py imported,
+    checkpoint and viewers, the distributed BA, its mesh and harness, the
+    profiling utilities and the profiling and diagnosis tools included)
+    and chip_smoke.py imported,
     VOConfig() unmodified run for four frames and refined offline, the
     same with the sharded backend over two CPU shards, a sharded solve,
     and a textured frame rendered, in a fresh interpreter: no JAX and
@@ -330,6 +331,10 @@ def test_port_runs_without_jax():
         "import ya_vo_tpu_torch.parallel.dist_ba as dist_ba\n"
         "import ya_vo_tpu_torch.parallel.scaling_bench as scaling_bench\n"
         "import ya_vo_tpu_torch.utils.profiling\n"
+        "import ya_vo_tpu_torch.profile_step, ya_vo_tpu_torch.profile_bench\n"
+        "import ya_vo_tpu_torch.bench_lk, ya_vo_tpu_torch.diag_primary\n"
+        "import ya_vo_tpu_torch.scaling_artifact\n"
+        "import ya_vo_tpu_torch.devserver\n"
         "for m in pkgutil.walk_packages(ya_vo_tpu_torch.__path__,\n"
         "                               'ya_vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

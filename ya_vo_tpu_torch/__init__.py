@@ -23,3 +23,15 @@ def create_frontend(config=None, camera=None, device=None):
 
     return Frontend(config or VOConfig(), camera or kitti_camera(),
                     device=device)
+
+
+def require_device(device="cuda"):
+    """`device` as a torch.device; raises on a CUDA device where there is
+    none (the tools run on the card unless asked for the CPU)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this runs on the card by "
+                           "default; pass --device cpu to run on the CPU")
+    return device

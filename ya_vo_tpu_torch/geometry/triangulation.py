@@ -75,3 +75,12 @@ def triangulate_fast(P1, P2, uv1, uv2, mask, min_depth: float = 0.1,
         (c02 * h0 + c12 * h1 + c22 * h2) / det_safe,
     ], dim=-1)
     return pts, mask & finite & _depth_ok(P1, P2, pts, min_depth, max_depth)
+
+
+def reprojection_errors(P, pts_w, uv) -> torch.Tensor:
+    """Pixel reprojection error [..., N] of world points through P
+    [..., 3, 4]."""
+    Xh = torch.cat([pts_w, torch.ones_like(pts_w[..., :1])], dim=-1)
+    proj = torch.einsum("...ij,...nj->...ni", P, Xh)
+    z = torch.where(proj[..., 2].abs() < 1e-9, 1e-9, proj[..., 2])
+    return torch.linalg.norm(proj[..., :2] / z[..., None] - uv, dim=-1)

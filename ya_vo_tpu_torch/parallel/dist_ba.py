@@ -21,11 +21,13 @@ is Schur-reduced:
 JAX's collectives map onto a `parallel.mesh.Mesh`, whose shards may share
 a device, so:
   * a `psum` over a mesh axis sums the shards' partials in shard order on
-    the axis group's first device; with a process group initialised (the
-    1-D solver), a `torch.distributed.all_reduce` (SUM) over its processes
-    follows (NCCL for CUDA tensors, gloo for the CPU);
+    the axis group's first device; across processes a
+    `torch.distributed.all_reduce` (SUM) follows, over the whole process
+    group (the 1-D solver) or over a mesh line's sub-group (the 2-D
+    solver): NCCL for CUDA tensors, gloo for the CPU, or gloo staged
+    through host memory for processes that share one card;
   * an `all_gather(tiled=True)` concatenates along the gathered axis in
-    shard order;
+    shard order, then, across processes, in rank order;
   * a replicated value (poses, S, b, the step and its acceptance) is
     computed once, on the mesh's first device, and copied to each device
     that reads it, so every shard reads the same bits.
@@ -76,13 +78,27 @@ class Sharded(NamedTuple):
     n_processes: int = 1
 
     def gather(self, device=None) -> torch.Tensor:
-        """The whole tensor on `device` (default: the first shard's)."""
+        """The whole tensor on `device` (default: the first shard's). Across
+        processes every process passes its rows in a buffer of the whole
+        length with a mask of the rows it holds; a row held by several
+        (the 2-D solver's landmarks, replicated over kf) comes from the
+        first."""
         device = self.shards[0].device if device is None else device
-        out = torch.cat([s.to(device) for s in self.shards])
-        if self.n_processes > 1:
-            parts = [torch.empty_like(out) for _ in range(self.n_processes)]
-            dist.all_gather(parts, out)
-            out = torch.cat(parts)
+        if self.n_processes == 1:
+            return torch.cat([s.to(device) for s in self.shards])
+        n = int(_all_reduce(torch.tensor(max(
+            s + len(x) for s, x in zip(self.starts, self.shards)),
+            device=device), op=dist.ReduceOp.MAX))
+        buf = self.shards[0].new_zeros((n,) + self.shards[0].shape[1:],
+                                       device=device)
+        held = torch.zeros(n, dtype=torch.uint8, device=device)
+        for s, x in zip(self.starts, self.shards):
+            buf[s:s + len(x)] = x.to(device)
+            held[s:s + len(x)] = 1
+        out = buf
+        for b, h in reversed(list(zip(_all_gather(buf), _all_gather(held)))):
+            out = torch.where(h.bool().reshape((-1,) + (1,) * (b.dim() - 1)),
+                              b, out)
         return out
 
 
@@ -270,10 +286,32 @@ def _psum(parts, dst, across_processes: bool = False):
     acc = parts[0].to(dst)
     for p in parts[1:]:
         acc = acc + p.to(dst)
-    if across_processes:
-        acc = acc.clone()              # all_reduce writes in place
-        dist.all_reduce(acc)
-    return acc
+    return _all_reduce(acc) if across_processes else acc
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` for a collective to write in place: in host memory
+    when `t` is on a card and the process group has no CUDA backend (gloo,
+    as processes that share one card run; `mesh.init_multihost`)."""
+    if t.device.type == "cuda" and "nccl" not in str(dist.get_backend()):
+        return t.cpu()
+    return t.clone()
+
+
+def _all_reduce(t, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """`t` reduced over `group`'s processes (default: all), on t's
+    device."""
+    x = _staged(t)
+    dist.all_reduce(x, op=op, group=group)
+    return x.to(t.device)
+
+
+def _all_gather(t, group=None) -> list:
+    """Each of `group`'s processes' `t`, in rank order, on t's device."""
+    x = _staged(t)
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return [p.to(t.device) for p in parts]
 
 
 def _replicate(t, devices):
@@ -455,45 +493,119 @@ def make_dist_solver_2d(
       * the dense solve, landmark back-substitution on each column.
     `collective_bytes_per_iter` prices these exactly.
 
+    Across processes the mesh is the whole grid with `Mesh.process` set
+    (`mesh.process_mesh`, or `mesh.map_mesh` with a process group): each
+    process passes the whole problem and solves the tiles it holds. A sum
+    over kf runs over a torch.distributed sub-group of each kf column (the
+    processes that hold a tile of it), a sum over lm over one of each lm
+    row, the gathers over kf over the column's group, and the costs over
+    the whole group (both axes); within a process each column's or row's
+    own tiles are summed first, in order. A process holds as many tiles of
+    each column as every other process of that column (JAX's process-major
+    order gives this whenever the processes hold equally many devices).
+    The groups are built at the first solve, where every process calls
+    `new_group` for each column, then each row, that spans two processes or
+    more. A mesh without `process` is this process's alone.
+
     Returns solve(problem) -> (poses `Sharded` over kf blocks, landmarks
-    `Sharded` over lm shards, cost0, cost1). Requires W % Pk == 0 and
-    L % Pl == 0. Runs within one process: across processes it would need
-    sub-group collectives, and raises NotImplementedError when the process
-    group holds more than one process (ROADMAP Queue 1 item 14).
+    `Sharded` over lm shards, cost0, cost1): this process's blocks and
+    shards; `gather` gives the whole. Requires W % Pk == 0 and
+    L % Pl == 0.
     """
-    grid = (mesh.devices if mesh.axis_names == (kf_axis, lm_axis)
-            else mesh.devices.T)
+    swap = mesh.axis_names != (kf_axis, lm_axis)
+    grid = mesh.devices.T if swap else mesh.devices
+    owner = mesh.process
+    if owner is not None:
+        owner = owner.T if swap else owner
+        for col in owner.T:
+            ranks, counts = np.unique(col, return_counts=True)
+            if len(ranks) > 1 and (len(set(counts)) > 1
+                                   or (np.diff(col) < 0).any()):
+                raise ValueError(f"a kf column held by processes {col}: "
+                                 f"each must hold as many of its tiles, in "
+                                 f"process order")
     Pk, Pl = grid.shape
-    col = [grid[0, l] for l in range(Pl)]      # landmark shard l's home
-    root = grid[0, 0]
-    tiles = [(k, l) for k in range(Pk) for l in range(Pl)]
+    groups = {}
+
+    def build_groups():
+        """One sub-group for each column, then each row, of two or more
+        processes (None for the others); every process builds them all."""
+        if not groups:
+            for kind, lines in (("col", owner.T), ("row", owner)):
+                groups[kind] = []
+                for line in lines:
+                    ranks = sorted(set(line.tolist()))
+                    groups[kind].append(
+                        dist.new_group(ranks) if len(ranks) > 1 else None)
+        return groups["col"], groups["row"]
 
     def solve(prob: DistBAProblem):
-        if mesh_lib.process_count() > 1:
-            raise NotImplementedError(
-                "the 2-D solver across processes needs sub-group "
-                "collectives: not ported yet, ROADMAP Queue 1 item 14")
+        n_proc = mesh_lib.process_count()
+        multi = owner is not None and n_proc > 1
+        if owner is not None and owner.max() >= n_proc:
+            raise ValueError(f"the mesh spans {owner.max() + 1} processes, "
+                             f"the process group {n_proc}")
         W, L = prob.poses.shape[0], prob.landmarks.shape[0]
         if W % Pk or L % Pl:
             raise ValueError(f"W={W}, L={L} over a {Pk}x{Pl} mesh")
         Wk, Ls = W // Pk, L // Pl
         kb = [slice(k * Wk, (k + 1) * Wk) for k in range(Pk)]
         lb = [slice(l * Ls, (l + 1) * Ls) for l in range(Pl)]
+        rank = mesh_lib.process_index() if multi else None
+        tiles = [(k, l) for k in range(Pk) for l in range(Pl)
+                 if rank is None or owner[k, l] == rank]
+        col_k = {}                      # own column -> its own kf blocks
+        row_l = {}                      # own row -> its own lm shards
+        for k, l in tiles:
+            col_k.setdefault(l, []).append(k)
+            row_l.setdefault(k, []).append(l)
+        cols, rows = sorted(col_k), sorted(row_l)
+        col_grp, row_grp = (build_groups() if multi
+                            else ([None] * Pl, [None] * Pk))
+        col = {l: grid[col_k[l][0], l] for l in cols}   # shard l's home
+        root = grid[tiles[0]]
+        dtype = prob.poses.dtype
         obs = {(k, l): (prob.obs_uv[lb[l], kb[k]].to(grid[k, l]),
                         prob.obs_valid[lb[l], kb[k]].to(grid[k, l]))
                for k, l in tiles}
-        lmv = [prob.lm_valid[lb[l]].to(col[l]) for l in range(Pl)]
+        lmv = {l: prob.lm_valid[lb[l]].to(col[l]) for l in cols}
         lmv_t = {(k, l): lmv[l].to(grid[k, l]) for k, l in tiles}
-        lms = [prob.landmarks[lb[l]].to(col[l]) for l in range(Pl)]
+        lms = {l: prob.landmarks[lb[l]].to(col[l]) for l in cols}
+
+        def col_sum(parts, l):
+            """psum over kf: column l's own tiles (`parts` by kf block),
+            then over the column's processes."""
+            acc = _psum([parts[k] for k in col_k[l]], col[l])
+            return acc if col_grp[l] is None else _all_reduce(acc,
+                                                              col_grp[l])
+
+        def col_gather(parts, l, dim):
+            """all_gather over kf (tiled along `dim`) in column l."""
+            x = torch.cat([parts[k].to(col[l]) for k in col_k[l]], dim=dim)
+            return x if col_grp[l] is None else torch.cat(
+                _all_gather(x, col_grp[l]), dim=dim)
+
+        def row_sum(parts, k):
+            """psum over lm: row k's own tiles (`parts` by lm shard), then
+            over the row's processes."""
+            acc = _psum([parts[l] for l in row_l[k]], grid[k, row_l[k][0]])
+            return acc if row_grp[k] is None else _all_reduce(acc,
+                                                              row_grp[k])
+
+        def total(parts):
+            """The sum over both axes of this process's parts."""
+            acc = (_psum(parts, root) if parts
+                   else torch.zeros((), dtype=dtype, device=root))
+            return _all_reduce(acc) if multi else acc
 
         def on_tiles(poses, lms_cols):
             """Each tile's pose block and landmark shard on its device, and
             its column's observation counts over the whole window."""
             pb = {(k, l): poses[kb[k]].to(grid[k, l]) for k, l in tiles}
             lt = {(k, l): lms_cols[l].to(grid[k, l]) for k, l in tiles}
-            n_obs = [_psum([_obs_counts(pb[k, l], lt[k, l], lmv_t[k, l],
-                                        obs[k, l][1]) for k in range(Pk)],
-                           col[l]) for l in range(Pl)]
+            n_obs = {l: col_sum({k: _obs_counts(pb[k, l], lt[k, l],
+                                                lmv_t[k, l], obs[k, l][1])
+                                 for k in col_k[l]}, l) for l in cols}
             return {(k, l): (pb[k, l], lt[k, l], lmv_t[k, l], *obs[k, l],
                              n_obs[l].to(grid[k, l])) for k, l in tiles}
 
@@ -507,14 +619,15 @@ def make_dist_solver_2d(
 
         def cost(poses):
             ta = on_tiles(poses, lms)
-            return _psum([terms(ta[t])[4] for t in tiles], root)
+            return total([terms(ta[t])[4] for t in tiles])
 
         with _fp32_matmul():
             poses = prob.poses.to(root)
             prior_dev, _ = _prior(pose_prior_weight, poses)
 
             def prior_cost(poses_q):
-                """Summed over the kf blocks in order."""
+                """Summed over the kf blocks in order (the poses are
+                replicated: every process sums them all)."""
                 if pose_prior_weight <= 0:
                     return 0.0
                 d = prior_dev(poses_q)
@@ -531,31 +644,40 @@ def make_dist_solver_2d(
                     r, Jp, Jl, w, c = terms(ta[t])
                     own[t] = (r, c) + _landmark_blocks(r, Jp, Jl, w)
                 # the landmark system, exact over the window (sum over kf)
-                Hll_inv = [_inv3(_psum([own[k, l][4] for k in range(Pk)],
-                                       col[l]), damping) for l in range(Pl)]
-                bl = [_psum([own[k, l][5] for k in range(Pk)], col[l])
-                      for l in range(Pl)]
+                Hll_inv = {l: _inv3(col_sum({k: own[k, l][4]
+                                             for k in col_k[l]}, l), damping)
+                           for l in cols}
+                bl = {l: col_sum({k: own[k, l][5] for k in col_k[l]}, l)
+                      for l in cols}
                 # the dominant gather: each landmark's coupling rows for
                 # the WHOLE window
-                Wpl_full = [torch.cat([own[k, l][6].to(col[l])
-                                       for k in range(Pk)], dim=1)
-                            for l in range(Pl)]
-                rows_S, rows_b = {}, {}
+                Wpl_full = {l: col_gather({k: own[k, l][6]
+                                           for k in col_k[l]}, l, 1)
+                            for l in cols}
+                rows_Sb = {}
                 for k, l in tiles:
                     _, _, Hpp, bp, _, _, Wpl_own = own[k, l]
                     d = grid[k, l]
                     A2, S_off = _schur_rows(Wpl_own, Hll_inv[l].to(d),
                                             Wpl_full[l].to(d))
-                    rows_S[k, l] = _block_diag(Hpp, W, k * Wk) - S_off
-                    rows_b[k, l] = bp - (A2 @ bl[l].to(d).reshape(-1)
-                                         ).reshape(Wk, 6)
-                # reduced camera rows: sum over lm, gathered over kf
-                S = torch.cat([_psum([rows_S[k, l] for l in range(Pl)],
-                                     grid[k, 0]).to(root)
-                               for k in range(Pk)])
-                b = torch.cat([_psum([rows_b[k, l] for l in range(Pl)],
-                                     grid[k, 0]).to(root)
-                               for k in range(Pk)])
+                    S_rows = _block_diag(Hpp, W, k * Wk) - S_off
+                    b_rows = bp - (A2 @ bl[l].to(d).reshape(-1)
+                                   ).reshape(Wk, 6)
+                    rows_Sb[k, l] = torch.cat([S_rows.reshape(Wk, -1),
+                                               b_rows], dim=1)
+                # reduced camera rows [Wk, 36W + 6]: sum over lm, gathered
+                # over kf in each own column (the first one's kept; a
+                # process joins every column group it is in)
+                row_tot = {k: row_sum({l: rows_Sb[k, l] for l in row_l[k]},
+                                      k) for k in rows}
+                Sb = None
+                for l in cols:
+                    if Sb is None or col_grp[l] is not None:
+                        g = col_gather({k: row_tot[k] for k in col_k[l]}, l,
+                                       0).to(root)
+                        Sb = g if Sb is None else Sb
+                S = Sb[:, :36 * W].reshape(W, 6, W, 6)
+                b = Sb[:, 36 * W:]
                 if pose_prior_weight > 0:
                     S = S + pose_prior_weight * eye
                     b = b - pose_prior_weight * prior_dev(poses)
@@ -564,33 +686,36 @@ def make_dist_solver_2d(
                 new_poses = lie.se3_exp(dxp) @ poses
 
                 # landmark back-substitution on each column
-                cands = [lms[l] + _back_substitute(
+                cands = {l: lms[l] + _back_substitute(
                     Hll_inv[l], bl[l], Wpl_full[l], dxp.to(col[l]),
-                    ok.to(col[l]), lmv[l]) for l in range(Pl)]
+                    ok.to(col[l]), lmv[l]) for l in cols}
                 ta_a = on_tiles(new_poses, cands)
                 ta_b = on_tiles(new_poses, lms)
-                new_lms, mixed = [], []
-                for l in range(Pl):
-                    lmA = _psum([cost_rows(ta_a[k, l]) for k in range(Pk)],
-                                col[l])
-                    lmB = _psum([cost_rows(ta_b[k, l]) for k in range(Pk)],
-                                col[l])
-                    new_lms.append(torch.where((lmA <= lmB)[:, None],
-                                               cands[l], lms[l]))
-                    mixed.append(torch.minimum(lmA, lmB).sum())
-                mixed_cost = _psum(mixed, root) + prior_cost(new_poses)
-                cost_prev = (_psum([own[t][1] for t in tiles], root)
+                new_lms, mixed = {}, []
+                for l in cols:
+                    lmA = col_sum({k: cost_rows(ta_a[k, l])
+                                   for k in col_k[l]}, l)
+                    lmB = col_sum({k: cost_rows(ta_b[k, l])
+                                   for k in col_k[l]}, l)
+                    new_lms[l] = torch.where((lmA <= lmB)[:, None],
+                                             cands[l], lms[l])
+                    # a column's sum counts once: from its kf block 0
+                    if rank is None or owner[0, l] == rank:
+                        mixed.append(torch.minimum(lmA, lmB).sum())
+                mixed_cost = total(mixed) + prior_cost(new_poses)
+                cost_prev = (total([own[t][1] for t in tiles])
                              + prior_cost(poses))
                 accept = mixed_cost < cost_prev
                 poses = torch.where(accept, new_poses, poses)
-                lms = [torch.where(accept.to(col[l]), new_lms[l], lms[l])
-                       for l in range(Pl)]
+                lms = {l: torch.where(accept.to(col[l]), new_lms[l], lms[l])
+                       for l in cols}
             cost1 = cost(poses)
-        out_poses = Sharded(tuple(poses[kb[k]].to(grid[k, 0])
-                                  for k in range(Pk)),
-                            tuple(k * Wk for k in range(Pk)))
-        return (out_poses, Sharded(tuple(lms), tuple(l * Ls
-                                                     for l in range(Pl))),
+        n_out = n_proc if multi else 1
+        out_poses = Sharded(tuple(poses[kb[k]].to(grid[k, row_l[k][0]])
+                                  for k in rows),
+                            tuple(k * Wk for k in rows), n_out)
+        return (out_poses, Sharded(tuple(lms[l] for l in cols),
+                                   tuple(l * Ls for l in cols), n_out),
                 cost0, cost1)
 
     return solve

@@ -77,7 +77,7 @@ def window_problem(L: int, W: int, seed: int = 0, device="cpu",
                      obs_valid=p.obs_valid.T.contiguous())
 
 
-def _sync(devices) -> None:
+def sync_devices(devices) -> None:
     for d in set(devices):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
@@ -119,11 +119,11 @@ def measure(L: int = 16384, W: int = 8, iters: int = 4,
             solve = dist_ba.make_dist_solver_2d(
                 mesh_lib.Mesh(grid, ("kf", "lm")), cam, iters=iters)
         solve(prob)
-        _sync(devs)                                  # warm
+        sync_devices(devs)                                  # warm
         t0 = time.perf_counter()
         for _ in range(repeats):
             solve(prob)
-        _sync(devs)
+        sync_devices(devs)
         dt = (time.perf_counter() - t0) / repeats / iters
         if base is None:
             base = dt

@@ -160,8 +160,46 @@ def detect_kwargs(fc) -> dict:
                 harris_k=fc.harris_k)
 
 
-def _center(T: np.ndarray) -> np.ndarray:
-    """Camera centre of a world->camera pose."""
+def lk_kwargs(tc) -> dict:
+    """`lk_cuda.track`'s parameters from a `TrackConfig`."""
+    return dict(levels=tc.lk_levels, half=tc.lk_window // 2,
+                iters=tc.lk_iters, eps=tc.lk_eps,
+                max_residual=tc.lk_max_residual,
+                rel_residual=tc.lk_rel_residual)
+
+
+def gn_kwargs(tc) -> dict:
+    """`pose_solver.solve_pose`'s parameters from a `TrackConfig`."""
+    return dict(iters=tc.gn_rounds * tc.gn_iters_per_round,
+                huber_delta=tc.huber_delta, chi2_threshold=tc.chi2_threshold)
+
+
+def near_tracks(r_uv2, track_uv, keep):
+    """The proximity test: a fresh match within 12 px of a kept track."""
+    d2 = ((r_uv2[:, None, :] - track_uv[None, :, :]) ** 2).sum(-1)
+    return ((d2 < 144.0) & keep[None, :]).any(1)
+
+
+def depth_gate(ratio: float, r_valid, r_pts, pose, c_now, c_kf):
+    """`r_valid` less the fresh points `r_pts` deeper in `pose` than
+    `ratio` times the baseline between the camera centres `c_now` and
+    `c_kf` (`ratio` 0: no gate)."""
+    if ratio <= 0:
+        return r_valid
+    baseline = torch.linalg.norm(c_now - c_kf)
+    z_cur = lie.transform_points(pose, r_pts)[:, 2]
+    return r_valid & (z_cur < ratio * baseline)
+
+
+def merge_order(keep, r_valid):
+    """The keyframe merge's two stable argsorts: (dest, the kept slots
+    last; src, the valid fresh points first)."""
+    return (torch.argsort(keep.to(torch.int32), stable=True),
+            torch.argsort((~r_valid).to(torch.int32), stable=True))
+
+
+def camera_center(T):
+    """Camera centre of a world->camera pose (numpy or torch)."""
     return -T[:3, :3].T @ T[:3, 3]
 
 
@@ -325,16 +363,12 @@ class Frontend:
         tmpl_img, tmpl_uv, seed, use = lk_inputs(
             tc.lk_template, cam, pose, rel, lm_pos, track_uv, anchor_uv,
             track_mask, prev_img, kf_img)
-        flow = lk_cuda.track(
-            tmpl_img, img_curr, tmpl_uv, seed, use, levels=tc.lk_levels,
-            half=tc.lk_window // 2, iters=tc.lk_iters, eps=tc.lk_eps,
-            max_residual=tc.lk_max_residual, rel_residual=tc.lk_rel_residual)
+        flow = lk_cuda.track(tmpl_img, img_curr, tmpl_uv, seed, use,
+                             **lk_kwargs(tc))
         n_flow = flow.status.sum()
 
-        solve = pose_solver.solve_pose(
-            T_prior, lm_pos, flow.uv, flow.status, cam,
-            iters=tc.gn_rounds * tc.gn_iters_per_round,
-            huber_delta=tc.huber_delta, chi2_threshold=tc.chi2_threshold)
+        solve = pose_solver.solve_pose(T_prior, lm_pos, flow.uv, flow.status,
+                                       cam, **gn_kwargs(tc))
         n_ba = solve.n_inliers
         keep = flow.status & solve.inlier_mask
         new_track_uv = torch.where(keep[:, None], flow.uv, anchor_uv)
@@ -345,19 +379,15 @@ class Frontend:
                            abs_threshold=mc.abs_threshold,
                            cross_check=mc.cross_check)
         r_uv2 = kp.uv[m.idx2]
-        d2 = ((r_uv2[:, None, :] - new_track_uv[None, :, :]) ** 2).sum(-1)
-        near = ((d2 < 144.0) & keep[None, :]).any(1)
+        near = near_tracks(r_uv2, new_track_uv, keep)
         P1 = self.K @ kf_pose[:3, :4]
         P2 = self.K @ solve.pose[:3, :4]
         r_pts, r_valid = triangulate_fast(P1, P2, kf_uv, r_uv2,
                                           m.mask & ~near)
-        c_kf = -kf_pose[:3, :3].T @ kf_pose[:3, 3]
-        c_now = -solve.pose[:3, :3].T @ solve.pose[:3, 3]
-        if tc.max_depth_baseline_ratio > 0:
-            baseline = torch.linalg.norm(c_now - c_kf)
-            z_cur = lie.transform_points(solve.pose, r_pts)[:, 2]
-            r_valid = r_valid & (z_cur < tc.max_depth_baseline_ratio
-                                 * baseline)
+        c_kf = camera_center(kf_pose)
+        c_now = camera_center(solve.pose)
+        r_valid = depth_gate(tc.max_depth_baseline_ratio, r_valid, r_pts,
+                             solve.pose, c_now, c_kf)
         n_matches = m.mask.sum()
         n_kp = kp.mask.sum()
 
@@ -386,8 +416,7 @@ class Frontend:
         # merged post-keyframe table: kept slots stay, new features fill
         # free slots in ascending order (stable argsorts; the host replays
         # this assignment from dest/src/n_new)
-        dest = torch.argsort(keep.to(torch.int32), stable=True)
-        src = torch.argsort((~r_valid).to(torch.int32), stable=True)
+        dest, src = merge_order(keep, r_valid)
         write_ok = torch.arange(K_cap, device=keep.device) < n_new
         anchor_kf = new_track_uv.index_put((dest,), torch.where(
             write_ok[:, None], r_uv2[src], new_track_uv[dest]))
@@ -615,6 +644,24 @@ class Frontend:
         return True, info
 
     # ------------------------------------------------------------------ #
+    def _step_args(self, img, prev_override=None) -> tuple:
+        """`_step_body`'s arguments after (kp, desc) for a dispatch of
+        `img` as frame `frame_id`: the device state, with the LK template
+        image `prev_override`, else the last dispatch's, else the last
+        frame's."""
+        if prev_override is not None:
+            prev_img = prev_override
+        elif self._d_prev_img is not None:
+            prev_img = self._d_prev_img
+        else:
+            prev_img = self.last_img if self.last_img is not None else img
+        return (self._d_kf_img, img, prev_img, self._d_track_uv,
+                self._d_anchor_uv, self._d_track_valid, self._d_lm_pos,
+                self._d_pose, self._d_rel, self._d_kf_desc, self._d_kf_uv,
+                self._d_kf_mask, self._d_kf_pose, self._d_kf_ref,
+                self._d_fsk, self._d_slot_stamp, self.frame_id,
+                self.map.free_landmark_capacity)
+
     def _dispatch_track(self, img, pre=None, prev_override=None) -> dict:
         """Launch the fused step on the device-resident state and commit the
         state chain; the record's copies to the host start here and are
@@ -622,20 +669,10 @@ class Frontend:
         extraction of `img` (a redo); `prev_override` is the LK template
         image that dispatch used."""
         t0 = time.perf_counter()
-        if prev_override is not None:
-            prev_img = prev_override
-        elif self._d_prev_img is not None:
-            prev_img = self._d_prev_img
-        else:
-            prev_img = self.last_img if self.last_img is not None else img
+        args = self._step_args(img, prev_override)
+        prev_img = args[2]
         kp, desc = self._extract(img) if pre is None else pre
-        state_out, record = self._step_body(
-            kp, desc, self._d_kf_img, img, prev_img, self._d_track_uv,
-            self._d_anchor_uv, self._d_track_valid, self._d_lm_pos,
-            self._d_pose, self._d_rel, self._d_kf_desc, self._d_kf_uv,
-            self._d_kf_mask, self._d_kf_pose, self._d_kf_ref, self._d_fsk,
-            self._d_slot_stamp, self.frame_id,
-            self.map.free_landmark_capacity)
+        state_out, record = self._step_body(kp, desc, *args)
         (self._d_anchor_uv, self._d_track_valid, self._d_lm_pos,
          self._d_pose, self._d_rel, self._d_kf_desc, self._d_kf_uv,
          self._d_kf_mask, self._d_kf_pose, self._d_kf_img, self._d_kf_ref,
@@ -1020,8 +1057,8 @@ class Frontend:
             if self._recent_steps else inst
         step = max(step, inst * 0.25, 0.1 * self._peak_step)
         corr_try = np.linalg.inv(anchor_old) @ new_poses[-1]
-        t_corr = float(np.linalg.norm(_center(new_poses[-1])
-                                      - _center(anchor_old)))
+        t_corr = float(np.linalg.norm(camera_center(new_poses[-1])
+                                      - camera_center(anchor_old)))
         cosang = (np.trace(corr_try[:3, :3]) - 1.0) / 2.0
         r_corr = float(np.degrees(np.arccos(np.clip(cosang, -1, 1))))
         if (t_corr > bc.max_correction_steps * max(step, 1e-3)
@@ -1293,8 +1330,8 @@ class Frontend:
         pts, valid = self._np(pts), self._np(valid) & ok_m
         tc = self.cfg.tracking
         if tc.max_depth_baseline_ratio > 0:
-            baseline = float(np.linalg.norm(_center(pose)
-                                            - _center(old_kf_pose)))
+            baseline = float(np.linalg.norm(camera_center(pose)
+                                            - camera_center(old_kf_pose)))
             z_cur = (pts @ pose[:3, :3].T + pose[:3, 3])[:, 2]
             valid &= z_cur < tc.max_depth_baseline_ratio * max(baseline, 1e-6)
         free = np.nonzero(~self.track_valid)[0]
