@@ -29,15 +29,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      frame 4 frames on with absolute projection seeds, "prev" from it to
      the next frame with the projected-motion seeds), level by level
      against the plain version, with K1's device time and iterations under
-     each. The checks and their tolerances are
-     `ya_vo_tpu_torch/selfcheck.py`'s;
+     each. Then K4, pose GN's loop in one launch, against its plain
+     version on a real step's solve inputs of phase 8's world (after 8
+     frames at VOConfig(), K_cap 2048: the prior, the track table's
+     landmarks, LK's flow and status) and on a seeded 2048-point problem
+     with outliers, mask holes and points behind the camera: its
+     iterations, device and call ms, launches a call and bound. The
+     checks and their tolerances are `ya_vo_tpu_torch/selfcheck.py`'s;
   4. main path: `create_frontend(cfg, cam, device="cuda").run(frames)` over
      the 40-frame stamps world at VOConfig() defaults with window BA off:
      0 resets, 2048 keypoints every tracked frame, the keyframes and
      ATE_sim3 of the port's earlier runs (MAIN_KEYFRAMES, MAIN_ATE at four
      digits), every kernel launched by that run, the LK kernel once a
      tracked frame and the two FAST kernels equally often, at least once a
-     tracked frame;
+     tracked frame, K4 once a tracked frame;
   5. production path: `create_frontend(VOConfig(), cam)` unmodified (sync
      window BA every 3rd keyframe, push apply, redo of the in-flight frames
      at pipeline depth 8) over the same 40 frames: at least one BA solve, no
@@ -45,7 +50,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (`port_jax_reference.py`), ATE_sim3 below 0.05 and held at four digits
      (MAIN_BA_ATE); LK launched once a fresh or redone dispatch, the FAST
      kernels once a fresh extraction (a redo reuses its frame's), K3 once a
-     dispatch and once a bootstrap or relocalization;
+     dispatch and once a bootstrap or relocalization, K4 once a dispatch;
   6. reset path: the same frames with two black frames after frame 20, at
      VOConfig(): at least one reset and one PnP relocalization, tracking at
      the end, the step scale after the blackout within 5% of the scale
@@ -61,7 +66,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      inside the run: at most one reset more than the JAX reference on its
      own render of the segment, no BA discards, at least one solve,
      ATE_sim3 below 0.25 and held at four digits with the keyframes
-     (TEXTURED_ATE, TEXTURED_KEYFRAMES);
+     (TEXTURED_ATE, TEXTURED_KEYFRAMES); the iterations K4 ran in each
+     solve of the run (median, max, from its device counts read once at
+     the end);
   9. cli: the user's entry point, `ya_vo_tpu_torch.run_vo` (its
      synchronous `process` loop). (a) `--synthetic` at its defaults (30
      frames, 376x1241, synchronous BA): the summary's keys are the JAX
@@ -178,6 +185,7 @@ from ya_vo_tpu_torch.parallel import dist_ba, scaling_bench
 from ya_vo_tpu_torch.parallel import mesh as mesh_lib
 from ya_vo_tpu_torch.selfcheck import (bits_equal, card_line, check,
                                        device_ms, time_ms)
+from ya_vo_tpu_torch.tracking import pose_solver
 from ya_vo_tpu_torch.tracking.frontend import (detect_kwargs,
                                                photometric_normalize)
 from ya_vo_tpu_torch.utils import synthetic
@@ -188,12 +196,14 @@ from ya_vo_tpu_torch.viz import evaluation
 # port_jax_reference.py read from a checkout's chip_smoke
 SEQ = synthetic.STAMPS
 # The main path's result, as the port's card runs print it since the card
-# solves the 8-point null vector in float64 (geometry/epipolar.py; a change
-# that moves it changes the trajectory).
+# solves the 8-point null vector in float64 (geometry/epipolar.py) and
+# runs pose GN as one kernel (csrc/pose_gn.cu, whose sums are taken in
+# another order than eager einsum's): a change that moves either changes
+# the trajectory.
 MAIN_KEYFRAMES = 20
-MAIN_ATE = 0.0309
+MAIN_ATE = 0.0240
 # The production path's ATE_sim3 at four digits, likewise.
-MAIN_BA_ATE = 0.0146
+MAIN_BA_ATE = 0.0147
 # The JAX package's frontend on the CPU on the same frames, LK with the
 # TPU kernel's semantics (`port_jax_reference.py`): window BA off, on, and
 # on through the blackout. Its RANSAC draws are not the port's, so ATEs
@@ -207,14 +217,14 @@ JAX_BLACKOUT = dict(ate_sim3=0.013599145102656892, resets=1,
 BLACK_AT, BLACK_N = 21, 2
 # phase 8: bench.py's textured world and the frames of it run; the card's
 # ATE_sim3 at four digits and keyframes, as the port's card runs print
-# them with the float64 null vector (like MAIN_ATE, they follow that
-# branch of geometry/epipolar.py); the JAX package's frontend on its own
+# them with the float64 null vector and pose GN's kernel (like MAIN_ATE,
+# they follow those rounding outcomes); the JAX package's frontend on its own
 # render of the same
 # frames (`port_jax_reference.py --runs textured`; its sensor noise and
 # RANSAC draws are not the card's, so these compare in size only)
 TEXTURED = dict(n_frames=410, seed=5)
 TEXTURED_N = 150
-TEXTURED_ATE = 0.0206
+TEXTURED_ATE = 0.0235
 TEXTURED_KEYFRAMES = 75
 JAX_TEXTURED = dict(ate_sim3=0.028769486322771494, resets=1,
                     relocalizations=1, keyframes=75, ba_solves=24)
@@ -227,7 +237,7 @@ JAX_TEXTURED = dict(ate_sim3=0.028769486322771494, resets=1,
 # as a KITTI tree under configs/KITTI.json, the JAX CLI on its own render of
 # the same frames beside it; (b)'s ATE_sim3 is bounded, not pinned
 # (asynchronous BA applies at timing-dependent frames)
-CLI_ATE = 0.0214
+CLI_ATE = 0.0217
 JAX_CLI = dict(frames=30, resets=0, ba_runs=4, ba_discarded=0,
                relocalizations=0, ate_sim3_m=0.0104)
 CLI_N = 120
@@ -379,6 +389,35 @@ def path_launches(name: str, launches: dict = None) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def pose_gn_iterations():
+    """Collect the iterations of every pose GN solve made inside: each
+    call of `pose_solver.solve_pose` asks for the kernel's iteration count
+    (a device scalar, read by the caller once the run is over)."""
+    counts = []
+    solve = pose_solver.solve_pose
+
+    def counted(*args, **kw):
+        out, n = solve(*args, with_iters=True, **kw)
+        counts.append(n)
+        return out
+
+    pose_solver.solve_pose = counted
+    try:
+        yield counts
+    finally:
+        pose_solver.solve_pose = solve
+
+
+def iteration_summary(counts) -> dict:
+    """Median, max, mean and histogram of `pose_gn_iterations`' counts."""
+    its = torch.stack(counts).cpu().numpy()
+    return dict(solves=len(its), median=float(np.median(its)),
+                max=int(its.max()), mean=float(its.mean()),
+                histogram={int(k): int(v) for k, v in
+                           zip(*np.unique(its, return_counts=True))})
+
+
 def run_production(frames, poses_gt, cam, card):
     """Phase 5: VOConfig() unmodified over the 40 frames, pipelined."""
     _build.reset_launches()
@@ -415,6 +454,8 @@ def run_production(frames, poses_gt, cam, card):
           f"production: lk launches {launches}, {n_disp} dispatches")
     check(launches["hamming"] == n_disp + 1,
           f"production: hamming launches {launches}")
+    check(launches["pose_gn"] == n_disp,
+          f"production: pose_gn launches {launches}, {n_disp} dispatches")
     out = dict(frames_per_s=n_tr / dt, tracked_frames=n_tr, seconds=dt,
                ate_sim3=ate, jax_ate_sim3=JAX_BA_ATE, resets=fe.n_resets,
                keyframes=sum(r.is_keyframe for r in fe.results),
@@ -463,6 +504,9 @@ def run_reset(frames, poses_gt, cam, card, dump_dir=None):
     n_disp = launches["lk_level"]
     check(launches["hamming"] >= n_disp + 1 + fe.n_relocalizations,
           f"reset: hamming launches {launches}")
+    # K4 once a dispatch and once a relocalization's probe at least
+    check(launches["pose_gn"] >= n_disp + fe.n_relocalizations,
+          f"reset: pose_gn launches {launches}")
     return dict(seconds=dt, frames=len(seq), resets=fe.n_resets,
                 reset_frames=[r.frame_id for r in fe.results if r.reset],
                 relocalizations=fe.n_relocalizations,
@@ -509,10 +553,15 @@ def run_textured(card) -> dict:
     _build.reset_launches()
     fe = create_frontend(VOConfig(), seq.cam, device="cuda")
     t0 = time.perf_counter()
-    traj = fe.run((seq.frame(f) for f in range(TEXTURED_N)), pipelined=True)
+    with pose_gn_iterations() as counts:
+        traj = fe.run((seq.frame(f) for f in range(TEXTURED_N)),
+                      pipelined=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = path_launches("textured path")
+    check(launches["pose_gn"] == len(counts),
+          f"textured: {launches['pose_gn']} K4 launches, {len(counts)} "
+          f"solves")
     check(traj.shape == (TEXTURED_N, 4, 4) and np.isfinite(traj).all(),
           f"textured: trajectory shape {traj.shape} or not finite")
     check(fe.n_resets <= JAX_TEXTURED["resets"] + 1,
@@ -535,6 +584,7 @@ def run_textured(card) -> dict:
                 ba_solves=fe.n_ba_runs, ba_discarded=fe.n_ba_discarded,
                 ba_solve_call_ms_mean=float(np.mean(fe.ba_ms)),
                 redone_dispatches=fe.n_redone, jax=JAX_TEXTURED,
+                pose_gn_iterations=iteration_summary(counts),
                 renderer=renderer, render=render, launches=launches,
                 launches_per_frame={k: v / n_fresh
                                     for k, v in launches.items()},
@@ -1098,11 +1148,12 @@ def check_dist_2d_processes(card) -> dict:
     return r
 
 
-# phase 13: diag_primary's frames; profile_step's calls a row (its
-# profiler sessions over the fused step's ~6,000 launches a call take
-# seconds each); the bound on bench_lk's K1 against phase 3's
+# phase 13: diag_primary's frames; profile_step's calls a row (the tool's
+# own count: with 3, every profiler session over the single K4 launch of
+# the pose GN row came back without device events on an H100); the bound
+# on bench_lk's K1 against phase 3's
 DIAG_N = 60
-TOOL_REPS = 3
+TOOL_REPS = profile_step.REPS
 LK_TIME_TOL = 0.2
 
 
@@ -1135,9 +1186,9 @@ def run_tools(frames, cam, card, lk_device_ms: float) -> dict:
         print("profile_step " + profile_step.format_row(name, row),
               flush=True)
         rows.append(dict(name=name, **row))
-    check(rows[0]["kernel_launches"] == 4,
+    check(rows[0]["kernel_launches"] == 5,
           f"profile_step: the fused step launched {rows[0]['kernel_launches']}"
-          f" hand-written kernels a call, not 4 (K2, select, K1, K3)")
+          f" hand-written kernels a call, not 5 (K2, select, K1, K3, K4)")
     out["profile_step"] = dict(rows=rows, seconds=time.perf_counter() - t0)
     del fe, st, x
     # bench_lk at 3 levels, 30 iterations against phase 3's K1
@@ -1287,6 +1338,14 @@ def main() -> int:
         "lk_level": sc.check_lk(img0.float(), img1.float(), kp0.uv,
                                 kp0.mask),
     }
+    # K4 at a real step's solve inputs (phase 8's world, K_cap 2048), and
+    # on a seeded problem
+    *step, gn = sc.textured_solve_inputs()
+    results["pose_gn"] = sc.check_pose_gn(*step, **gn)
+    del step
+    seeded = sc.check_pose_gn(*sc.pose_gn_problem(), **gn)
+    print("kernel pose_gn on a seeded problem: " + json.dumps(seeded),
+          flush=True)
     for name, r in results.items():
         print(f"kernel {name}: " + json.dumps(r), flush=True)
     print("detect: " + json.dumps(sc.check_detect(img1, kw)), flush=True)
@@ -1323,6 +1382,7 @@ def main() -> int:
     check(launches["fast_select"] == launches["fast_score"] >= n_tr,
           f"fast launches {launches}")
     check(launches["hamming"] >= n_tr, f"hamming launches {launches}")
+    check(launches["pose_gn"] == n_tr, f"pose_gn launches {launches}")
     print("main path: " + json.dumps(dict(
         frames_per_s=n_tr / dt, tracked_frames=n_tr, seconds=dt,
         ate_sim3=ate, jax_ate_sim3=JAX_ATE, resets=fe.n_resets,
@@ -1413,10 +1473,14 @@ def main() -> int:
                "hamming": ("ya_vo_tpu_torch/csrc/hamming.cu",
                            "ya_vo_tpu/features/pallas_hamming.py:46"),
                "lk_level": ("ya_vo_tpu_torch/csrc/lk_level.cu",
-                            "ya_vo_tpu/tracking/lk_pallas.py:217")}
+                            "ya_vo_tpu/tracking/lk_pallas.py:217"),
+               "pose_gn": ("ya_vo_tpu_torch/csrc/pose_gn.cu",
+                           "ya_vo_tpu/tracking/pose_solver.py:144 "
+                           "(lax.while_loop, XLA)")}
     # ms is the kernel's device time per call of its wrapper (per tracker
     # call for LK); library_ms is null where no one PyTorch call computes
-    # the function (LK's pyramid solve, FAST's segment test + Harris + NMS).
+    # the function (LK's pyramid solve, FAST's segment test + Harris + NMS,
+    # pose GN's robust solve with its early exit).
     # launches: the production path's (phase 5), VOConfig() unmodified
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1],

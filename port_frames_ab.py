@@ -3,8 +3,12 @@
 
     python3 port_frames_ab.py PARENT_DIR CHANGE_DIR [--pairs 6] [--runs 2]
     python3 port_frames_ab.py PARENT_DIR CHANGE_DIR --detect [--pairs 2]
+    python3 port_frames_ab.py PARENT_DIR CHANGE_DIR --bench [--pairs 2]
+                              [--runs 1]
     python3 port_frames_ab.py --apply-mode [TREE] [--pairs 4] [--runs 1]
                               [--warm 8 ...] [--world-seed S ...]
+    python3 port_frames_ab.py --orders [TREE] [--order-seed 0 1 ...]
+                              [--solver plain kernel]
 
 Each side runs in a process of its own from its own checkout (so each
 imports its own `ya_vo_tpu_torch` and builds its own kernels), on one CUDA
@@ -20,6 +24,27 @@ path's parameters on frame 1 of that sequence, 20 calls under
 `torch.profiler`: device ms a call (the sum of all device events), device
 events and CUDA runtime launch calls a call, and the call's time by CUDA
 events around 20 calls (host issue included). Prints one JSON line a run.
+
+With `--bench`, each side runs the bench's primary: `bench.run_bench`
+with its extras cut to their least (a 1-step issue probe, a 7-frame stamps
+secondary, no selfcheck; the refine still runs), `--runs` reps (the
+410-frame textured world, `VOConfig()` unmodified, per rep a fresh
+frontend through 8 warm frames and `precompile()`, then the timed
+`run(pipelined=True)` of the other 402 with the render inside the window).
+Prints each rep's frames/s, resets, redone dispatches, solves and ATE_sim3
+as the bench rounds them; where the checkout's `chip_smoke.py` has
+`pose_gn_iterations`, also the iterations pose GN's kernel ran in each
+solve of the call (median, max, histogram; the warm frames, the probe's 2
+dispatches and the stamps secondary's 7 frames included).
+
+With `--orders`, one checkout (TREE, default the current directory) runs
+the same bench call once for each pose solver ("plain", the eager version
+the card ran before K4, and "kernel", K4) and each `--order-seed`: every
+solve takes its points in a permuted order (seed 0: as given; seed S: one
+seeded permutation), which changes only the order of the normal
+equations' sums. Prints each run's ATE_sim3, resets, solves and frames/s,
+so the spread of the trajectory under float-level perturbations of the
+pose solve shows beside the two solvers' difference.
 
 With `--apply-mode`, the two sides are the window BA's apply modes of one
 checkout (TREE, default the current directory), "push" and "device", on
@@ -102,6 +127,58 @@ print(json.dumps(dict(
 """
 
 
+BENCH_CHILD = r"""
+import contextlib, json, sys
+import chip_smoke as cs
+from ya_vo_tpu_torch import bench
+counted = getattr(cs, "pose_gn_iterations", None)
+with (counted() if counted else contextlib.nullcontext()) as counts:
+    out = bench.run_bench(reps=int(sys.argv[1]), probe_steps=1,
+                          stamps_frames=bench.STAMPS_WARM + 1,
+                          selfcheck=lambda: "skipped")
+for i, fps in enumerate(out["fps_reps"]):
+    print(json.dumps(dict(
+        frames_per_s=fps, resets=out["resets_reps"][i],
+        redone=out["redone_reps"][i], ba_solves=out["ba_runs_reps"][i],
+        ba_discarded=out["ba_discarded_reps"][i],
+        ate_sim3=out["ate_reps"][i], card=out["card"])), flush=True)
+if counted:
+    print(json.dumps(dict(pose_gn_iterations=cs.iteration_summary(counts))))
+"""
+
+
+ORDERS_CHILD = r"""
+import json, sys
+import torch
+from ya_vo_tpu_torch import bench
+from ya_vo_tpu_torch.tracking import pose_solver
+solver, seed = sys.argv[1], int(sys.argv[2])
+solve = dict(plain=pose_solver.solve_pose_plain,
+             kernel=pose_solver.solve_pose)[solver]
+
+
+def ordered(T, pts, uv, mask, cam, **kw):
+    n = len(mask)
+    perm = (torch.arange(n) if seed == 0 else torch.randperm(
+        n, generator=torch.Generator().manual_seed(seed))).to(mask.device)
+    out = solve(T, pts[perm], uv[perm], mask[perm], cam, **kw)
+    inliers = torch.empty_like(out.inlier_mask)
+    inliers[perm] = out.inlier_mask
+    return out._replace(inlier_mask=inliers)
+
+
+pose_solver.solve_pose = ordered
+out = bench.run_bench(reps=1, probe_steps=1,
+                      stamps_frames=bench.STAMPS_WARM + 1,
+                      selfcheck=lambda: "skipped")
+print(json.dumps(dict(
+    solver=solver, order_seed=seed, ate_sim3=out["ate_reps"][0],
+    resets=out["resets_reps"][0], ba_solves=out["ba_runs_reps"][0],
+    redone=out["redone_reps"][0], frames_per_s=out["fps_reps"][0],
+    card=out["card"])), flush=True)
+"""
+
+
 APPLY_CHILD = r"""
 import json, sys, time
 import numpy as np
@@ -145,9 +222,14 @@ for rep in range(runs):
 
 
 def run_side(tree: str, runs: int, detect: bool = False,
-             apply_mode: str = None, warms=(8,), seed: int = None) -> list:
+             apply_mode: str = None, warms=(8,), seed: int = None,
+             bench: bool = False, order=None) -> list:
     if detect:
         args = ["-c", DETECT_CHILD]
+    elif order:
+        args = ["-c", ORDERS_CHILD, *map(str, order)]
+    elif bench:
+        args = ["-c", BENCH_CHILD, str(runs)]
     elif apply_mode:
         args = ["-c", APPLY_CHILD, str(runs), apply_mode,
                 ",".join(map(str, warms)), str(seed)]
@@ -160,7 +242,7 @@ def run_side(tree: str, runs: int, detect: bool = False,
         raise RuntimeError(f"{tree}: {out.stderr[-2000:]}")
     if detect:
         return out.stdout.strip().splitlines()[-1:]
-    if apply_mode:
+    if apply_mode or bench or order:
         return [json.loads(x) for x in out.stdout.split("\n") if x]
     return [float(x) for x in out.stdout.split()]
 
@@ -173,6 +255,9 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--detect", action="store_true",
                     help="time one fast.detect call instead of frames/s")
+    ap.add_argument("--bench", action="store_true",
+                    help="the bench's primary frames/s (402 textured "
+                    "frames) instead of the stamps world's")
     ap.add_argument("--apply-mode", action="store_true",
                     help="push against device BA apply in one checkout")
     ap.add_argument("--warm", type=int, nargs="+", default=[8],
@@ -183,7 +268,23 @@ def main() -> int:
                     help="with --apply-mode: the textured world's seeds, "
                     "each alternated in turn (default chip_smoke.py "
                     "phase 8's)")
+    ap.add_argument("--orders", action="store_true",
+                    help="the bench's ATE_sim3 under permuted point orders "
+                    "of each pose solver, in one checkout")
+    ap.add_argument("--order-seed", type=int, nargs="+", default=[0, 1, 2],
+                    help="with --orders: 0 keeps the points' order, S > 0 "
+                    "permutes them with seed S")
+    ap.add_argument("--solver", nargs="+", default=["plain", "kernel"],
+                    choices=["plain", "kernel"],
+                    help="with --orders: the pose solvers to run")
     args = ap.parse_args()
+    if args.orders:
+        for solver in args.solver:
+            for seed in args.order_seed:
+                rec, = run_side(os.path.abspath(args.parent), 1,
+                                order=(solver, seed))
+                print(json.dumps(rec), flush=True)
+        return 0
     if args.apply_mode:
         return apply_modes(os.path.abspath(args.parent), args.pairs,
                            args.runs, args.warm, args.world_seed)
@@ -197,6 +298,13 @@ def main() -> int:
                          else ("change", "parent")):
                 line, = run_side(sides[name], 0, detect=True)
                 print(f"pair {i} {name} detect: {line}", flush=True)
+        return 0
+    if args.bench:
+        got, wins = alternate(
+            ("parent", "change"), args.pairs,
+            lambda name: run_side(sides[name], args.runs, bench=True),
+            lambda recs: " ".join(json.dumps(r) for r in recs))
+        summarize(got, wins, args.pairs)
         return 0
     got, wins = alternate(
         ("parent", "change"), args.pairs,
@@ -219,7 +327,8 @@ def alternate(names, pairs: int, side, show):
             out = side(name)
             print(f"pair {i} {name}: {show(out)}", flush=True)
             pair[name] = [x["frames_per_s"] if isinstance(x, dict) else x
-                          for x in out]
+                          for x in out
+                          if not isinstance(x, dict) or "frames_per_s" in x]
             got[name] += pair[name]
         means = {name: float(np.mean(v)) for name, v in pair.items()}
         if len(set(means.values())) > 1:

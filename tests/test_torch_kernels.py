@@ -26,7 +26,7 @@ from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.features import fast, fast_cuda, hamming_cuda, matching
 from ya_vo_tpu_torch.geometry import epipolar, ransac
-from ya_vo_tpu_torch.tracking import lk_cuda
+from ya_vo_tpu_torch.tracking import lk_cuda, pose_solver
 from ya_vo_tpu_torch.utils import synthetic
 from ya_vo_tpu_torch.utils.scene import TexturedSequence
 
@@ -225,6 +225,134 @@ def test_hamming_kernel_exact_other_lengths(cuda, n_words):
     assert torch.equal(kern, hamming_cuda.hamming_matrix(d1, d2))
 
 
+# seeded pose problems (selfcheck.pose_gn_problem): 2048, 1000 and 37
+# points with 5% outliers, 10% mask holes and 8 points behind the camera,
+# and 3000 (past the 2048 the kernel holds in registers); every point
+# masked out; two valid points
+POSE_CASES = {"n2048": dict(), "n1000": dict(n=1000, seed=1),
+              "n37": dict(n=37, seed=2), "n3000": dict(n=3000, seed=4),
+              "all_masked": dict(n_valid=0),
+              "two_valid": dict(n_valid=2, seed=3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 3, 40])
+@pytest.mark.parametrize("case", list(POSE_CASES))
+def test_pose_gn_kernel_matches_plain(cuda, case, iters):
+    """K4 against `solve_pose_plain` on the card at selfcheck's
+    tolerances (`pose_gn_parity`, which also holds two kernel calls bit
+    for bit; the all-masked and two-point problems are degenerate, their
+    pose set by float32 rounding along H's null space, and are held to
+    what they determine, with a third call for the first step): one
+    launch a call."""
+    T, pts, uv, mask, cam = sc.pose_gn_problem(device=cuda,
+                                                  **POSE_CASES[case])
+    _build.reset_launches()
+    out = sc.pose_gn_parity(T, pts, uv, mask, cam, iters=iters)
+    print(f"pose_gn {case} iters={iters}: {json.dumps(out)}")
+    assert _build.LAUNCHES["pose_gn"] == (3 if out["degenerate"] else 2)
+    assert out["iterations"] <= iters
+    assert out["degenerate"] == (case in ("all_masked", "two_valid"))
+    if case == "all_masked":
+        assert out["iterations"] == 1 and out["max_abs_err"] == 0.0
+    if case == "two_valid":
+        # not the kernel's doing: the plain version on the card and on the
+        # CPU part along H's null space as well
+        card = pose_solver.solve_pose_plain(T, pts, uv, mask, cam,
+                                            iters=iters)
+        cpu = pose_solver.solve_pose_plain(
+            *(t.cpu() for t in (T, pts, uv, mask)), cam, iters=iters)
+        d = (card.pose.cpu() - cpu.pose).abs().max().item()
+        print(f"pose_gn two_valid iters={iters}: the plain version on the "
+              f"card against the CPU's, pose {d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [1, 2])
+def test_pose_gn_degenerate_problems_over_seeds(cuda, n_valid):
+    """Degenerate problems (one or two valid points of 2048) on 20 seeds
+    at `iters` 1, 3 and 40, each held by `pose_gn_parity` (every first
+    step that the guard did not zero solves the linear model on the valid
+    points; no final cost above the cost at T_init). Rounding along H's
+    null space decides whether the guard zeroes a step, so a problem's
+    first step may be zeroed in one version and taken in the other; K4
+    must take it on at least half the problems where the plain version
+    does (a kernel that never steps fails). Prints each problem and the
+    ranges of K4 against the plain version on the card, and of that
+    against the plain version on the CPU."""
+    rows = []
+    for seed in range(20):
+        T, pts, uv, mask, cam = sc.pose_gn_problem(device=cuda,
+                                                      n_valid=n_valid,
+                                                      seed=seed)
+        for iters in (1, 3, 40):
+            out = sc.pose_gn_parity(T, pts, uv, mask, cam, iters=iters)
+            card = pose_solver.solve_pose_plain(T, pts, uv, mask, cam,
+                                                iters=iters, with_iters=True)
+            cpu = pose_solver.solve_pose_plain(
+                *(t.cpu() for t in (T, pts, uv, mask)), cam, iters=iters,
+                with_iters=True)
+            out.update(seed=seed, iters=iters,
+                       iterations_cpu=int(cpu[1]),
+                       card_cpu_pose_err=(card[0].pose.cpu()
+                                          - cpu[0].pose).abs().max().item(),
+                       n_inliers_cpu=int(cpu[0].n_inliers))
+            print(f"pose_gn degenerate n_valid={n_valid}: {json.dumps(out)}")
+            rows.append(out)
+    firsts = [r for r in rows if r["iters"] == 1]
+    taken = {v: sum(r[f"first_step_{v}"] != "zero" for r in firsts)
+             for v in ("kernel", "plain")}
+    lin = [r[f"first_step_{v}"] for r in firsts for v in ("kernel", "plain")
+           if r[f"first_step_{v}"] != "zero"]
+    summary = dict(
+        n_valid=n_valid, problems=len(rows), first_steps_taken=taken,
+        first_step_res_max=max(lin),
+        first_step_res_rel_max=max(
+            r[f"first_step_{v}"] / r["res_init"] for r in firsts
+            for v in ("kernel", "plain") if r[f"first_step_{v}"] != "zero"),
+        guard_flips=sum((r["first_step_kernel"] == "zero")
+                        != (r["first_step_plain"] == "zero")
+                        for r in firsts),
+        pose_err_max=max(r["max_abs_err"] for r in rows),
+        card_cpu_pose_err_max=max(r["card_cpu_pose_err"] for r in rows),
+        iterations_off_max=max(abs(r["iterations"] - r["iterations_plain"])
+                               for r in rows),
+        card_cpu_iterations_off_max=max(
+            abs(r["iterations_plain"] - r["iterations_cpu"]) for r in rows),
+        n_inliers_off_max=max(abs(r["n_inliers"] - r["n_inliers_plain"])
+                              for r in rows),
+        card_cpu_n_inliers_off_max=max(
+            abs(r["n_inliers_plain"] - r["n_inliers_cpu"]) for r in rows))
+    print(f"pose_gn degenerate summary: {json.dumps(summary)}")
+    assert taken["kernel"] >= taken["plain"] / 2
+
+
+@pytest.mark.cuda
+def test_pose_gn_reads_views_on_the_callers_stream(cuda):
+    """Views that are not contiguous (the frontend hands the kernel slices
+    of its tables) give the contiguous inputs' result bit for bit, and a
+    call on a side stream (the backend BA thread's case) equals one on
+    the default stream."""
+    T, pts, uv, mask, cam = sc.pose_gn_problem(device=cuda)
+    n = len(mask)
+    ref = pose_solver.solve_pose(T, pts, uv, mask, cam)
+    wide = torch.zeros((n, 5), device=cuda)
+    wide[:, 1:4] = pts
+    uv_t = uv.T.contiguous().T
+    mask2 = torch.zeros(2 * n, dtype=torch.bool, device=cuda)
+    mask2[::2] = mask
+    T_t = T.T.contiguous().T
+    assert not any(t.is_contiguous() for t in (wide[:, 1:4], uv_t,
+                                               mask2[::2], T_t))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = pose_solver.solve_pose(T_t, wide[:, 1:4], uv_t, mask2[::2],
+                                     cam)
+    torch.cuda.current_stream().wait_stream(side)
+    assert all(sc.bits_equal(a, b) for a, b in zip(got, ref))
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_bad_cuda_input(cuda):
     img = torch.zeros((64, 64), dtype=torch.float32, device=cuda)
@@ -247,6 +375,11 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
     with pytest.raises(ValueError, match="1 to 4 levels"):
         lk_cuda.track_pyramids(pyr, pyr, uv, uv,
                                torch.ones(4, dtype=torch.bool, device=cuda))
+    T, pts, uv_p, mask_p, cam = sc.pose_gn_problem(n=64, device=cuda)
+    with pytest.raises(ValueError, match="torch.float32"):
+        pose_solver.solve_pose(T.double(), pts, uv_p, mask_p, cam)
+    with pytest.raises(ValueError, match="torch.bool"):
+        pose_solver.solve_pose(T, pts, uv_p, mask_p.to(torch.uint8), cam)
 
 
 @pytest.mark.cuda
@@ -371,8 +504,11 @@ def test_cpu_tensors_take_the_plain_versions(frames):
     pyr = lk_cuda.build_pyramid(frames[0].float(), 3)
     lk_cuda.track_pyramids(pyr, pyr, uv, uv, mask)
     lk_cuda.track_level(pyr[0], pyr[0], uv, uv, mask, iters=30, eps=0.01)
+    T, pts, uv_p, mask_p, cam = sc.pose_gn_problem(n=64, device="cpu")
+    pose_solver.solve_pose(T, pts, uv_p, mask_p, cam)
+    pose_solver.solve_pose(T, pts, uv_p, mask_p, cam, with_iters=True)
     assert _build.LAUNCHES == {"fast_score": 0, "fast_select": 0,
-                               "hamming": 0, "lk_level": 0}
+                               "hamming": 0, "lk_level": 0, "pose_gn": 0}
 
 
 def test_lk_level_table_from_pyramids(frames):
@@ -451,7 +587,8 @@ def test_build_is_keyed_by_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert path.name == "libyavo_kernels.so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "fast_score.cu", "fast_select.cu", "hamming.cu", "lk_level.cu"]
+        "fast_score.cu", "fast_select.cu", "hamming.cu", "lk_level.cu",
+        "pose_gn.cu"]
     assert [f"{k}.cu" for k in _build.KERNELS] == sorted(
         p.name for p in _build.CSRC.glob("*.cu"))
 

@@ -1,14 +1,22 @@
 """Parity of the port's robust pose GN with the JAX package on seeded
-observations with noise and outliers (float32)."""
+observations with noise and outliers (float32), and the plain version's
+early exit against JAX's while-loop. On the CPU `solve_pose` takes
+`solve_pose_plain`; its CUDA kernel (K4) is held against the plain version
+on the card by tests/test_torch_kernels.py."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ya_vo_tpu.core import camera as jcam
 from ya_vo_tpu.core import lie as jlie
 from ya_vo_tpu.tracking import pose_solver as jps
 from ya_vo_tpu.utils import synthetic
+from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.core.camera import Camera
 from ya_vo_tpu_torch.tracking import pose_solver as tps
 
@@ -59,3 +67,141 @@ def test_solve_pose_converges(problem):
                          Camera.create(*(float(c) for c in cam)))
     np.testing.assert_allclose(out.pose.numpy(), T_gt, atol=5e-3)
     assert int(out.n_inliers) > 0.8 * vis.sum()
+
+
+# ---------------------------------------------------------------------------
+# The early exit: the plain version's iterations against JAX's while-loop
+# ---------------------------------------------------------------------------
+def jax_solve_counted(T_init, pts, uv, mask, cam, iters=40):
+    """`pose_solver._solve_pose` jitted as `solve_pose` jits it, with the
+    while-loop's final counter (its state's `it`) sent to the host.
+    Returns (PoseSolveResult, iterations)."""
+    counts = []
+    orig = jax.lax.while_loop
+
+    def while_loop(cond, body, init):
+        out = orig(cond, body, init)
+        jax.debug.callback(lambda n: counts.append(int(n)), out[1])
+        return out
+
+    jc = jcam.Camera.create(*cam)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.lax, "while_loop", while_loop)
+        fn = jax.jit(functools.partial(
+            jps._solve_pose, cam=jc, iters=iters, huber_delta=2.4477,
+            chi2_threshold=5.991, damping=1e-6))
+        with jax.default_matmul_precision("float32"):
+            res = jax.block_until_ready(fn(*(jnp.asarray(a.numpy()) for a in
+                                             (T_init, pts, uv, mask))))
+    jax.effects_barrier()
+    return res, counts[-1]
+
+
+EXIT_CASES = {
+    "well_seeded": dict(outliers=0.0, holes=0.0, behind=0),
+    "outliers_holes_behind": dict(),
+    "ragged_37": dict(n=37, seed=4),
+    "all_masked": dict(n_valid=0),
+}
+
+
+@pytest.mark.parametrize("case", list(EXIT_CASES))
+def test_plain_early_exit_equals_jax_while_loop(case):
+    """The iteration at which the plain version's `active` drops equals
+    the count JAX's while-loop ends at, on seeded problems (selfcheck's
+    generator: 2048 points unless stated, the KITTI camera, a perturbed
+    prior). JAX's count is the smallest `iters` whose pose equals the
+    `iters=40` pose bit for bit (a zeroed last step aside, which leaves
+    the pose as it was); the plain version's `iters=count` pose equals
+    its own `iters=40` pose bit for bit too."""
+    T, pts, uv, mask, cam = sc.pose_gn_problem(device="cpu",
+                                                  **EXIT_CASES[case])
+    ref, n_ref = jax_solve_counted(T, pts, uv, mask, cam)
+    out, n_plain = tps.solve_pose_plain(T, pts, uv, mask, cam,
+                                        with_iters=True)
+    assert int(n_plain) == n_ref
+    assert 1 <= n_ref < 40
+    args = (jnp.asarray(T.numpy()), jnp.asarray(pts.numpy()),
+            jnp.asarray(uv.numpy()), jnp.asarray(mask.numpy()),
+            jcam.Camera.create(*cam))
+    j_at = np.asarray(jps.solve_pose(*args, iters=n_ref).pose)
+    assert np.array_equal(j_at.view(np.int32),
+                          np.asarray(ref.pose).view(np.int32))
+    p_at = tps.solve_pose_plain(T, pts, uv, mask, cam, iters=n_ref)
+    assert sc.bits_equal(p_at.pose, out.pose)
+    np.testing.assert_allclose(out.pose.numpy(), np.asarray(ref.pose),
+                               atol=2e-4)
+    if case == "all_masked":
+        # H = damping * I and b = 0: a zero step, the exit at iteration 1
+        assert n_ref == 1 and sc.bits_equal(out.pose, T)
+        assert int(out.n_inliers) == 0 and float(out.final_cost) == 0.0
+
+
+def test_solve_pose_on_cpu_is_the_plain_version(problem):
+    """`solve_pose` on CPU tensors is `solve_pose_plain`, bit for bit, with
+    and without the iteration count."""
+    cam, lms, obs, vis, T_init, _ = problem
+    args = (torch.as_tensor(T_init), torch.as_tensor(lms),
+            torch.as_tensor(obs), torch.as_tensor(vis),
+            Camera.create(*(float(c) for c in cam)))
+    a = tps.solve_pose(*args, iters=12)
+    b, n = tps.solve_pose_plain(*args, iters=12, with_iters=True)
+    c, m = tps.solve_pose(*args, iters=12, with_iters=True)
+    assert all(sc.bits_equal(x, y) for x, y in zip(a, b))
+    assert all(sc.bits_equal(x, y) for x, y in zip(b, c))
+    assert int(n) == int(m) and n.dtype == torch.int64
+
+
+def test_textured_step_solve_inputs_on_cpu():
+    """selfcheck's real-step inputs (chip_smoke.py phase 3's K4 check) at
+    a small size: the track table's K_cap rows, live flow among them, and
+    `solve_pose` on them (the plain version on the CPU) converging early
+    with most of the flow inliers."""
+    from ya_vo_tpu_torch.core.camera import Camera as TCamera
+    cam = TCamera.create(359.428, 359.428, 303.5964, 92.60785)
+    *step, gn = sc.textured_solve_inputs(
+        device="cpu", n_frames=12, height=188, width=620, cam=cam,
+        tex_size=512)
+    _, pts, uv, status, cam_out = step
+    assert cam_out == cam and gn["iters"] == 40
+    assert pts.shape == (2048, 3) and uv.shape == (2048, 2)
+    assert status.dtype == torch.bool and int(status.sum()) > 100
+    out = sc.pose_gn_parity(*step, **gn)
+    assert out["max_abs_err"] == 0.0 and out["iterations"] < 40
+    assert out["n_inliers"] > 0.8 * int(status.sum())
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 2])
+def test_degenerate_parity_on_cpu(n_valid):
+    """selfcheck's degenerate branch on the CPU (the plain version on both
+    sides): every first step taken solves the linear model on the valid
+    points, to float64 rounding of the float32 pose; none with no valid
+    point, where H = damping * I and b = 0 give a zero step."""
+    T, pts, uv, mask, cam = sc.pose_gn_problem(device="cpu", n=512,
+                                                  n_valid=n_valid, seed=3)
+    out = sc.pose_gn_parity(T, pts, uv, mask, cam)
+    assert out["degenerate"] and out["n_valid_init"] == n_valid
+    assert out["first_step_kernel"] == out["first_step_plain"]
+    if n_valid:
+        assert out["first_step_plain"] <= 1e-4 * out["res_init"]
+    else:
+        assert out["first_step_plain"] == "zero" and out["iterations"] == 1
+
+
+def test_degenerate_parity_catches_a_wrong_step(monkeypatch):
+    """The degenerate branch fails a solver whose first step is half the
+    Gauss-Newton step (a pose that a final-cost bound alone lets pass)."""
+    T, pts, uv, mask, cam = sc.pose_gn_problem(device="cpu", n=512,
+                                                  n_valid=2, seed=3)
+    plain = tps.solve_pose_plain
+
+    def half_step(T_init, *args, iters=40, **kw):
+        out = plain(T_init, *args, iters=iters, **kw)
+        if iters != 1:
+            return out
+        dx = tps.lie.se3_log(out.pose @ tps.lie.se3_inverse(T_init))
+        return out._replace(pose=tps.lie.se3_exp(0.5 * dx) @ T_init)
+
+    monkeypatch.setattr(tps, "solve_pose", half_step)
+    with pytest.raises(RuntimeError, match="linear model"):
+        sc.pose_gn_parity(T, pts, uv, mask, cam)

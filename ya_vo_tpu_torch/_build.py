@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
-KERNELS = ("fast_score", "fast_select", "hamming", "lk_level")
+KERNELS = ("fast_score", "fast_select", "hamming", "lk_level", "pose_gn")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -60,6 +60,12 @@ _SIGNATURES = {
     # N, iters, eps, min_eig, max_residual, rel_residual, mode, stream
     "yavo_lk_level": [LkLevels, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _F, _F, _F, _F, _I, _P],
+    # T_init and its two strides, pts and its strides, uv and its strides,
+    # mask and its stride, N, iters, fx, fy, cx, cy, huber_delta,
+    # chi2_threshold, damping, out_pose, out_inliers, out_n_inliers,
+    # out_cost, out_iters, stream
+    "yavo_pose_gn": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I,
+                     _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -141,9 +147,10 @@ def launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`
-    (None in `shape` matches any size)."""
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+               contiguous: bool = True) -> None:
+    """Raise unless `t` is a CUDA tensor of `dtype` and `shape` (None in
+    `shape` matches any size), contiguous unless `contiguous` is False."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -152,5 +159,5 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
             s is not None and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{name}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")

@@ -84,21 +84,26 @@ class StepState(NamedTuple):
 
 def setup(device="cuda", world=None, max_keypoints: int = 2048,
           warm: int = WARM):
-    """(frontend after `warm` processed frames, frame `warm` on the
-    device); the frontend numbers it as `_pipe_step` does before its
-    dispatch (`frame_id` is its number)."""
+    """`prepare` on the tool's world at its config."""
     world = dict(WORLD, **(world or {}))
     fe = Frontend(config(world["height"], world["width"], max_keypoints),
                   synthetic.kitti_camera(), device=device)
     imgs, *_ = synthetic.render_sequence(**world)   # the same camera
-    for img in imgs[:warm]:
-        fe.process(img)
+    return prepare(fe, imgs.__getitem__, warm)
+
+
+def prepare(fe: Frontend, frame, warm: int = WARM):
+    """(`fe` after frames `frame(0)` .. `frame(warm - 1)` through
+    `process`, frame `warm` on the device); the frontend numbers it as
+    `_pipe_step` does before its dispatch (`frame_id` is its number)."""
+    for f in range(warm):
+        fe.process(frame(f))
     # no solve left running on the backend, its apply pushed to the device
     fe.finish()
     if fe._state_dirty:
         fe._push_state_to_device()
     fe.frame_id += 1
-    return fe, fe._ingest(imgs[warm])
+    return fe, fe._ingest(frame(warm))
 
 
 def snapshot(fe: Frontend, img: torch.Tensor) -> StepState:

@@ -12,7 +12,9 @@ tex_size=1024, q_max=48, mip_levels=4, noise_sigma=0)` at 376x1241):
   brief_determinism BRIEF descriptors of one detection twice, equal;
   hamming           K3 against a numpy popcount on 256 descriptors, and
                     against its plain version (`check_hamming`);
-  lk_level          K1 against its plain version (`check_lk`).
+  lk_level          K1 against its plain version (`check_lk`);
+  pose_gn           K4 against its plain version on a seeded problem and
+                    on a real step's solve inputs (`pose_gn_parity`).
 Parity only (the `*_parity` functions): no timing, so a profiler that
 drops events cannot fail the guard. Prints one JSON line a check and a
 summary line; exits 1 if any check failed or could not run, 2 without a
@@ -41,9 +43,10 @@ from torch.profiler import ProfilerActivity, profile
 from ya_vo_tpu_torch import _build
 from ya_vo_tpu_torch.config import VOConfig, with_option
 from ya_vo_tpu_torch.features import brief, fast, fast_cuda, hamming_cuda
-from ya_vo_tpu_torch.tracking import lk, lk_cuda
-from ya_vo_tpu_torch.tracking.frontend import detect_kwargs
-from ya_vo_tpu_torch.utils import scene
+from ya_vo_tpu_torch.core import lie
+from ya_vo_tpu_torch.tracking import lk, lk_cuda, pose_solver
+from ya_vo_tpu_torch.tracking.frontend import detect_kwargs, gn_kwargs
+from ya_vo_tpu_torch.utils import scene, synthetic
 from ya_vo_tpu_torch.utils.convert import offsets_from_numpy
 
 REPS = 20
@@ -71,6 +74,33 @@ LK_RTOL = 1e-4
 LK_ATOL = (1e-5, 1e-4, 1e-3)   # eig, res, std
 LK_TRACK_FRAC = 0.01
 
+# K4 against its plain version on the same inputs: rotation entries within
+# POSE_R_TOL, translation within POSE_T_TOL * (1 + |t|), final_cost within
+# POSE_COST_RTOL of the plain value, iterations equal or one off (a step
+# norm within float noise of the 1e-5 exit can end the loop one iteration
+# apart under two summation orders; the poses then differ by that step),
+# the inlier mask equal but on points whose chi2 under either pose lies
+# within POSE_CHI2_RTOL of chi2_threshold, and n_inliers off by at most
+# their number. Two kernel calls are equal bit for bit.
+# A problem with fewer than POSE_MIN_VALID valid points at T_init is
+# degenerate: H's rank is at most 4 and the damping (1e-6) lies below
+# float32's resolution of its ~1e6 eigenvalues, so a step's part along the
+# null space is set by rounding. That part decides whether the guard
+# (|dx| < 1) zeroes a step, and when a step norm falls to the 1e-5 exit,
+# so the pose, the iterations and the inliers follow rounding: on the card
+# the plain version parts from itself on the CPU as K4 parts from it
+# (tests/test_torch_kernels.py prints both over 40 seeded problems). What
+# rounding leaves fixed is the step's part that the valid points see: each
+# version's first step, where the guard did not zero it, solves the linear
+# model, r + J dx at T_init within POSE_LIN_RTOL of max |r| on the valid
+# points; and each version's final cost is at most the cost at T_init.
+POSE_MIN_VALID = 3
+POSE_R_TOL = 1e-5
+POSE_T_TOL = 1e-5
+POSE_COST_RTOL = 1e-5
+POSE_CHI2_RTOL = 1e-4
+POSE_LIN_RTOL = 1e-2
+
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W): HBM
 # bytes/s, 32-bit operations/s outside the tensor cores, int8 tensor ops/s.
 HBM_BYTES_S = 3.35e12
@@ -94,6 +124,15 @@ LK_FINAL_OPS = 121 * (9 + 3)
 FAST_PRE_OPS = 2 + 8 + 6 + 2 + 1
 FAST_RING_OPS = 32 + 32 + 2 * 16
 FAST_HARRIS_OPS = 9 * (12 + 3 + 3) + 7
+
+# Operations of pose GN, counted from the plain version's arithmetic: a
+# valid point an iteration (transform 18, projection and residual 10, J 14,
+# chi2 3, weights 9, J * w 12, H's 21 and b's 6 entries at 4 each), an
+# iteration's 6x6 solve, guard and exponential, and a point of the
+# epilogue (transform, projection, chi2, gates, Huber cost and its sum).
+POSE_POINT_OPS = 18 + 10 + 14 + 3 + 9 + 12 + 27 * 4
+POSE_SOLVE_OPS = 6 ** 3 + 20 + 150
+POSE_FINAL_OPS = 18 + 10 + 3 + 4 + 7 + 2
 
 # the renderer against the float64 tracer (tools/selfcheck.py's gate)
 RENDER_DIFF, RENDER_FRAC = 8, 0.005
@@ -632,6 +671,195 @@ def check_lk_templates(frames, cam, ahead: int = 4) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K4: pose GN
+# ---------------------------------------------------------------------------
+def pose_gn_problem(n: int = 2048, seed: int = 0, *, outliers: float = 0.05,
+                    holes: float = 0.1, behind: int = 8, n_valid=None,
+                    device="cuda"):
+    """A seeded pose problem of `n` points at the KITTI camera: landmarks in
+    front of the true pose (frame 1 of a forward trajectory) observed with
+    0.5 px noise, a fraction `outliers` of them moved by up to 30 px,
+    `holes` of the mask cleared, `behind` points placed behind the camera
+    (Z <= 1e-3, invalid though masked in), and T_init the true pose
+    perturbed by a seeded twist; with `n_valid`, only that many mask
+    entries kept. Returns (T_init, pts_w, uv, mask, cam)."""
+    rng = np.random.default_rng(seed)
+    cam = synthetic.kitti_camera()
+    T_gt = synthetic.forward_trajectory(2, step=0.7, yaw_rate=0.03)[1]
+    pts = synthetic.random_landmarks(n, seed=seed)
+    pc = pts @ T_gt[:3, :3].T + T_gt[:3, 3]
+    uv = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                   cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+    uv = uv + rng.normal(0.0, 0.5, uv.shape)
+    bad = rng.choice(n, int(outliers * n), replace=False)
+    uv[bad] += rng.uniform(-30.0, 30.0, (len(bad), 2))
+    mask = rng.random(n) >= holes
+    back = rng.choice(n, min(behind, n), replace=False)
+    pts[back, 2] = -rng.uniform(1.0, 10.0, len(back))
+    if n_valid is not None:
+        keep = rng.choice(np.setdiff1d(np.arange(n), back),
+                          min(n_valid, n - len(back)), replace=False)
+        mask[:] = False
+        mask[keep] = True
+    xi = rng.normal(0.0, 1.0, 6) * np.array([0.05, 0.05, 0.1, 4e-3, 4e-3,
+                                             4e-3])
+    T_init = lie.se3_exp(torch.as_tensor(xi)).numpy() @ T_gt
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.asarray(a)).to(device, dt)
+    return as_t(T_init), as_t(pts), as_t(uv), as_t(mask, torch.bool), cam
+
+
+def textured_solve_inputs(warm: int = 8, device="cuda", **world):
+    """A real step's solve inputs on chip_smoke.py phase 8's world
+    (`TexturedSequence(n_frames=410, seed=5)`, VOConfig(), K_cap 2048;
+    `world` overrides the sequence's arguments, the config follows its
+    size): after `warm` processed frames, the constant-velocity prior, the
+    track table's landmarks, the LK flow and its status that the fused
+    step hands `solve_pose` on frame `warm`. Returns (T_prior, lm_pos, uv,
+    status, cam, gn_kwargs)."""
+    from ya_vo_tpu_torch import profile_step
+    from ya_vo_tpu_torch.tracking.frontend import Frontend
+
+    seq = scene.TexturedSequence(**dict(dict(n_frames=410, seed=5), **world),
+                                 device=device)
+    fe = Frontend(VOConfig(image_height=seq.height, image_width=seq.width),
+                  seq.cam, device=device)
+    st = profile_step.snapshot(*profile_step.prepare(fe, seq.frame, warm))
+    x = profile_step.chain(fe, st)
+    return (x["T_prior"], st.args[6], x["flow"].uv, x["flow"].status,
+            seq.cam, gn_kwargs(fe.cfg.tracking))
+
+
+def pose_gn_parity(T_init, pts, uv, mask, cam, **gn) -> dict:
+    """K4 against `solve_pose_plain` on the same CUDA inputs, held to the
+    stated tolerances, and two kernel calls bit for bit. Returns the
+    errors and both versions' iterations."""
+    k, k_it = pose_solver.solve_pose(T_init, pts, uv, mask, cam,
+                                     with_iters=True, **gn)
+    k2 = pose_solver.solve_pose(T_init, pts, uv, mask, cam, **gn)
+    check(all(bits_equal(a, b) for a, b in zip(k, k2)),
+          "pose_gn: two calls on the same inputs differ")
+    p, p_it = pose_solver.solve_pose_plain(T_init, pts, uv, mask, cam,
+                                           with_iters=True, **gn)
+    thr = gn.get("chi2_threshold", 5.991)
+    Z0 = pose_solver._residuals_and_jacobian(T_init, pts, uv, cam)[2]
+    n_valid = int((mask & (Z0 > 1e-3)).sum())
+    degenerate = n_valid < POSE_MIN_VALID
+    t_p = p.pose[:3, 3]
+    rot = (k.pose[:3, :3] - p.pose[:3, :3]).abs().max().item()
+    trans = (k.pose[:3, 3] - t_p).abs().max().item()
+    t_tol = POSE_T_TOL * (1.0 + t_p.norm().item())
+    near = torch.zeros_like(mask)
+    for T in (k.pose, p.pose):
+        r = pose_solver._residuals_and_jacobian(T, pts, uv, cam)[0]
+        near |= ((r * r).sum(-1) - thr).abs() <= POSE_CHI2_RTOL * thr
+    flips = k.inlier_mask != p.inlier_mask
+    n_near = int(near.sum())
+    d_cost = abs(k.final_cost.item() - p.final_cost.item())
+    out = dict(max_abs_err=max(rot, trans), rot_err=rot, trans_err=trans,
+               trans_tol=t_tol, cost=p.final_cost.item(),
+               cost_rel_err=d_cost / max(abs(p.final_cost.item()), 1e-30),
+               iterations=int(k_it), iterations_plain=int(p_it),
+               n_inliers=int(k.n_inliers), n_inliers_plain=int(p.n_inliers),
+               inlier_flips=int(flips.sum()),
+               flips_off_threshold=int((flips & ~near).sum()),
+               near_threshold=n_near, n_points=len(mask),
+               n_masked_in=int(mask.sum()), n_valid_init=n_valid,
+               degenerate=degenerate)
+    bad = []
+    if degenerate:
+        out.update(first_steps(T_init, pts, uv, mask, cam, **gn))
+        for name in ("kernel", "plain"):
+            lin = out[f"first_step_{name}"]
+            if lin != "zero" and lin > POSE_LIN_RTOL * out["res_init"]:
+                bad.append(f"the {name} version's first step leaves "
+                           f"{lin} px of its linear model (max |r| "
+                           f"{out['res_init']} at T_init)")
+        cost0 = pose_solver.solve_pose_plain(T_init, pts, uv, mask, cam,
+                                             **dict(gn, iters=0)).final_cost
+        out["cost_init"] = cost0.item()
+        out["cost_kernel"] = k.final_cost.item()
+        if not (k.final_cost <= cost0 and p.final_cost <= cost0):
+            bad.append(f"final_cost {k.final_cost.item()} (plain "
+                       f"{p.final_cost.item()}) above {cost0.item()} at "
+                       f"T_init")
+        check(not bad, "pose_gn: " + "; ".join(bad))
+        return out
+    if rot > POSE_R_TOL:
+        bad.append(f"rotation off by {rot}")
+    if trans > t_tol:
+        bad.append(f"translation off by {trans} (tolerance {t_tol})")
+    if d_cost > POSE_COST_RTOL * abs(p.final_cost.item()):
+        bad.append(f"final_cost {k.final_cost.item()} against "
+                   f"{p.final_cost.item()}")
+    if abs(out["iterations"] - out["iterations_plain"]) > 1:
+        bad.append(f"{out['iterations']} iterations against "
+                   f"{out['iterations_plain']}")
+    if out["flips_off_threshold"]:
+        bad.append(f"{out['flips_off_threshold']} inlier flips away from "
+                   f"the chi2 threshold")
+    if abs(out["n_inliers"] - out["n_inliers_plain"]) > n_near:
+        bad.append(f"n_inliers {out['n_inliers']} against "
+                   f"{out['n_inliers_plain']}")
+    check(not bad, "pose_gn: " + "; ".join(bad))
+    return out
+
+
+def first_steps(T_init, pts, uv, mask, cam, **gn) -> dict:
+    """Each version's first step (`iters=1`) against the linear model at
+    T_init: "zero" where the pose is T_init bit for bit (the guard zeroed
+    the step, or the step was 0), else max |r + J dx| over the points valid at T_init, in float64
+    with dx = log(T_1 T_init^-1); and max |r| there (`res_init`)."""
+    gn = dict(gn, iters=1)
+    r, J, Z = pose_solver._residuals_and_jacobian(
+        T_init.double().cpu(), pts.double().cpu(), uv.double().cpu(), cam)
+    valid = mask.cpu() & (Z > 1e-3)
+    T0_inv = lie.se3_inverse(T_init.double().cpu())
+    out = dict(res_init=float(r[valid].abs().max()) if valid.any() else 0.0)
+    for name, solve in (("kernel", pose_solver.solve_pose),
+                        ("plain", pose_solver.solve_pose_plain)):
+        T1 = solve(T_init, pts, uv, mask, cam, **gn).pose
+        dx = lie.se3_log(T1.double().cpu() @ T0_inv)
+        lin = (r + J @ dx)[valid]
+        out[f"first_step_{name}"] = (
+            "zero" if torch.equal(T1, T_init)
+            else float(lin.abs().max()) if valid.any() else 0.0)
+    return out
+
+
+def check_pose_gn(T_init, pts, uv, mask, cam, **gn) -> dict:
+    """`pose_gn_parity`, then K4's costs on these inputs: device ms (its
+    own events), call ms, launches a call, the plain version's ms and the
+    bound for the iterations the kernel ran."""
+    out = pose_gn_parity(T_init, pts, uv, mask, cam, **gn)
+
+    def kernel():
+        return pose_solver.solve_pose(T_init, pts, uv, mask, cam, **gn)
+
+    before = _build.LAUNCHES["pose_gn"]
+    kernel()
+    launches = _build.LAUNCHES["pose_gn"] - before
+    check(launches == 1, f"pose_gn: {launches} launches a call")
+    # T_init, the points, their observations and mask read once; the pose,
+    # the inlier mask, the count, the cost and the iterations written once;
+    # the operations of the iterations the kernel ran on these inputs, over
+    # the points valid at T_init (a masked point has weight 0: it adds
+    # nothing to H, b or the cost and is never an inlier)
+    n, n_valid = len(mask), out["n_valid_init"]
+    n_bytes = 64 + n * (12 + 8 + 1) + 64 + n + 8 + 4 + 4
+    n_ops = out["iterations"] * (n_valid * POSE_POINT_OPS + POSE_SOLVE_OPS) \
+        + n_valid * POSE_FINAL_OPS
+    bound_ms, bound_by = bound(n_bytes, n_ops, F32_OPS_S)
+    return dict(out, launches_a_call=launches,
+                device_ms=device_ms(kernel, "pose_gn_kernel",
+                                    launches_per_call=1),
+                call_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: pose_solver.solve_pose_plain(
+                    T_init, pts, uv, mask, cam, **gn), reps=5),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
 # the renderer, BRIEF and K3 against numpy
 # ---------------------------------------------------------------------------
 def parity_sequence(device="cuda") -> scene.TexturedSequence:
@@ -797,6 +1025,12 @@ def main() -> int:
     run("hamming", hamming)
     run("lk_level", lambda: lk_summary(*lk_parity(
         img0.float(), img1.float(), state["kp"].uv, state["kp"].mask)[:2]))
+    def pose_gn():
+        *step, gn = textured_solve_inputs()
+        return dict(seeded=pose_gn_parity(*pose_gn_problem(), **gn),
+                    textured_step=pose_gn_parity(*step, **gn))
+
+    run("pose_gn", pose_gn)
     n_fail = sum(not r["ok"] for r in results)
     print(json.dumps({"selfcheck": "PASS" if n_fail == 0 else "FAIL",
                       "n_checks": len(results), "n_fail": n_fail}),

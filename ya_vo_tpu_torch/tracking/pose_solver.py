@@ -2,10 +2,15 @@
 
 Port of `ya_vo_tpu/tracking/pose_solver.py`: analytic 2x6 Jacobians, Huber
 weights times a soft chi2 gate, Levenberg damping, left-multiplicative
-updates, and an early exit once a step's norm is <= 1e-5. The early exit is
-kept on the device as an `active` flag that freezes the pose, which gives
-the same iterates as the JAX while-loop without a host round trip per
-iteration.
+updates, and an early exit once a step's norm is <= 1e-5. The JAX package
+runs the loop as a `lax.while_loop` on the device; here that loop is the
+CUDA kernel `csrc/pose_gn.cu` (K4): one launch a solve, which ends on the
+device at the early exit. A CPU tensor takes `solve_pose_plain`, which
+keeps the early exit as an `active` flag that freezes the pose (the same
+iterates as the while-loop, all `iters` iterations issued); a CUDA tensor
+launches the kernel or raises. The kernel takes any number of points: it
+holds the first 2048 (VOConfig()'s track table) in registers and reads the
+rest from device memory each iteration.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ya_vo_tpu_torch import _build
 from ya_vo_tpu_torch.core import lie
 from ya_vo_tpu_torch.core.camera import Camera
 
@@ -45,15 +51,21 @@ def _residuals_and_jacobian(T, pts_w, uv, cam: Camera):
     return r, J_proj @ J_point, Z
 
 
-def solve_pose(T_init, pts_w, uv, mask, cam: Camera, *, iters: int = 40,
-               huber_delta: float = 2.4477, chi2_threshold: float = 5.991,
-               damping: float = 1e-6) -> PoseSolveResult:
+def solve_pose_plain(T_init, pts_w, uv, mask, cam: Camera, *,
+                     iters: int = 40, huber_delta: float = 2.4477,
+                     chi2_threshold: float = 5.991, damping: float = 1e-6,
+                     with_iters: bool = False):
     """Robust pose-only GN from T_init [4, 4] over landmarks pts_w [N, 3]
-    observed at uv [N, 2], valid where mask [N]."""
+    observed at uv [N, 2], valid where mask [N]: the plain version of K4.
+    With `with_iters`, also returns the iterations the while-loop would run
+    ([] int64: those begun while the pose was not yet frozen)."""
     eye6 = torch.eye(6, dtype=T_init.dtype, device=T_init.device)
     T = T_init
     active = torch.ones((), dtype=torch.bool, device=T_init.device)
+    n_iters = torch.zeros((), dtype=torch.int64, device=T_init.device)
     for _ in range(iters):
+        if with_iters:
+            n_iters = n_iters + active
         r, J, Z = _residuals_and_jacobian(T, pts_w, uv, cam)
         chi2 = (r * r).sum(-1)
         valid = mask & (Z > 1e-3)
@@ -79,5 +91,53 @@ def solve_pose(T_init, pts_w, uv, mask, cam: Camera, *, iters: int = 40,
                              huber_delta * (nrm - 0.5 * huber_delta))
     final_cost = torch.where(valid, huber_cost, 0.0).sum() \
         / torch.clamp(valid.sum(), min=1)
-    return PoseSolveResult(pose=T, inlier_mask=inliers,
-                           n_inliers=inliers.sum(), final_cost=final_cost)
+    out = PoseSolveResult(pose=T, inlier_mask=inliers,
+                          n_inliers=inliers.sum(), final_cost=final_cost)
+    return (out, n_iters) if with_iters else out
+
+
+def _strides(name: str, t: torch.Tensor, dtype: torch.dtype, shape):
+    """`t`'s element strides, after `_build.check_cuda`'s tests but for
+    contiguity: the kernel reads views through their strides."""
+    _build.check_cuda(name, t, dtype, shape, contiguous=False)
+    return t.stride()
+
+
+def solve_pose(T_init, pts_w, uv, mask, cam: Camera, *, iters: int = 40,
+               huber_delta: float = 2.4477, chi2_threshold: float = 5.991,
+               damping: float = 1e-6, with_iters: bool = False):
+    """Robust pose-only GN from T_init [4, 4] over landmarks pts_w [N, 3]
+    observed at uv [N, 2], valid where mask [N]. On CUDA tensors, one
+    launch of K4 on the current stream, with no host read; with
+    `with_iters`, also returns the iterations it ran ([] int32 on the
+    device; the plain version's count on the CPU)."""
+    kw = dict(iters=iters, huber_delta=huber_delta,
+              chi2_threshold=chi2_threshold, damping=damping)
+    if T_init.device.type == "cpu":
+        return solve_pose_plain(T_init, pts_w, uv, mask, cam,
+                                with_iters=with_iters, **kw)
+    N = pts_w.shape[0]
+    if iters < 0:
+        raise ValueError(f"solve_pose: iters {iters} < 0")
+    ts = _strides("pose_gn T_init", T_init, torch.float32, (4, 4))
+    ps = _strides("pose_gn pts_w", pts_w, torch.float32, (N, 3))
+    us = _strides("pose_gn uv", uv, torch.float32, (N, 2))
+    ms = _strides("pose_gn mask", mask, torch.bool, (N,))
+    dev = T_init.device
+    for t in (pts_w, uv, mask):
+        if t.device != dev:
+            raise ValueError(f"solve_pose: inputs on {t.device} and {dev}")
+    pose = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    inliers = torch.empty(N, dtype=torch.bool, device=dev)
+    n_inliers = torch.empty((), dtype=torch.int64, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    n_iters = torch.empty((), dtype=torch.int32, device=dev)
+    _build.launch("pose_gn", T_init.data_ptr(), *ts, pts_w.data_ptr(), *ps,
+                  uv.data_ptr(), *us, mask.data_ptr(), *ms, N, iters,
+                  cam.fx, cam.fy, cam.cx, cam.cy, huber_delta,
+                  chi2_threshold, damping, pose.data_ptr(),
+                  inliers.data_ptr(), n_inliers.data_ptr(), cost.data_ptr(),
+                  n_iters.data_ptr())
+    out = PoseSolveResult(pose=pose, inlier_mask=inliers,
+                          n_inliers=n_inliers, final_cost=cost)
+    return (out, n_iters) if with_iters else out
