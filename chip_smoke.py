@@ -34,7 +34,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      frames at VOConfig(), K_cap 2048: the prior, the track table's
      landmarks, LK's flow and status) and on a seeded 2048-point problem
      with outliers, mask holes and points behind the camera: its
-     iterations, device and call ms, launches a call and bound. The
+     iterations, device and call ms, launches a call and bound; then K4
+     bit for bit against the outputs recorded from the first K4 (one
+     block of 256 threads) on every case of
+     `selfcheck.pose_gn_golden_cases` (tests/torch_data/pose_gn), one
+     launch a call, and its cluster size and device ms at the real step
+     and at a recorded solve that runs to the 40-iteration cap. The
      checks and their tolerances are `ya_vo_tpu_torch/selfcheck.py`'s;
   4. main path: `create_frontend(cfg, cam, device="cuda").run(frames)` over
      the 40-frame stamps world at VOConfig() defaults with window BA off:
@@ -1346,6 +1351,22 @@ def main() -> int:
     seeded = sc.check_pose_gn(*sc.pose_gn_problem(), **gn)
     print("kernel pose_gn on a seeded problem: " + json.dumps(seeded),
           flush=True)
+    # K4 bit for bit against the first K4's recorded outputs, and its
+    # device time on a recorded solve that runs to the 40-iteration cap
+    goldens = sc.check_pose_gn_goldens()
+    *capped, gn40 = sc.load_pose_inputs(sorted(sc.POSE_DATA.glob(
+        "capped_*.npz"))[0])
+    n40 = int(pose_solver.solve_pose(*capped, with_iters=True, **gn40)[1])
+    check(n40 == gn40["iters"], f"pose_gn: the capped solve ran {n40} "
+          f"iterations")
+    print("kernel pose_gn cluster: " + json.dumps(dict(
+        cluster_size=pose_solver.cluster_size(), goldens=goldens,
+        device_ms_real_step=results["pose_gn"]["device_ms"],
+        iterations_real_step=results["pose_gn"]["iterations"],
+        device_ms_40_iterations=sc.device_ms(
+            lambda: pose_solver.solve_pose(*capped, **gn40),
+            "pose_gn_kernel", launches_per_call=1), card=card)), flush=True)
+    del capped
     for name, r in results.items():
         print(f"kernel {name}: " + json.dumps(r), flush=True)
     print("detect: " + json.dumps(sc.check_detect(img1, kw)), flush=True)

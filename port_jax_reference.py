@@ -44,6 +44,14 @@ one of (the first four by default):
              kernel's semantics holds an XLA CPU thread while the backend
              thread's solve waits at its all-reduce for every virtual
              device, and XLA aborts the process after 40 s of that wait;
+  pose_caps - JAX's `_solve_pose` (jitted as `solve_pose` jits it, its
+             while-loop's final count read through a host callback; the
+             JAX package untouched) and the port's `solve_pose_plain` on
+             the CPU, on every solve of `--solves FILE`
+             (`port_pose_gn.py collect --all-out FILE` on the card, with
+             K4's iterations): how many solves each runs to the cap, how
+             often each pair of the three counts agrees, and the solves
+             where one caps and another exits;
   cli      - the JAX CLI, `run_vo.main`, on chip_smoke.py phase 9's
              arguments: `--synthetic` at its defaults (30 frames,
              376x1241), then a KITTI tree (`chip_smoke.write_kitti_tree`)
@@ -76,6 +84,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -93,13 +102,16 @@ import chip_smoke
 from chip_smoke import (blackout_scale_ratio, kitti_config, non_black,
                         with_blackout, write_kitti_tree)
 from ya_vo_tpu.config import VOConfig
+from ya_vo_tpu.core import camera as jcam
 from ya_vo_tpu.tracking import lk as jlk
+from ya_vo_tpu.tracking import pose_solver as jps
 from ya_vo_tpu.tracking.frontend import Frontend
 from ya_vo_tpu.utils import synthetic
 from ya_vo_tpu.utils.scene import TexturedSequence
 from ya_vo_tpu.viz import evaluation
+from ya_vo_tpu_torch import selfcheck
 from ya_vo_tpu_torch.config import with_option
-from ya_vo_tpu_torch.tracking import lk_cuda
+from ya_vo_tpu_torch.tracking import lk_cuda, pose_solver
 
 
 def tpu_semantics_lk(img0, img1, uv0, uv_init, mask, **kw):
@@ -116,6 +128,71 @@ def tpu_semantics_lk(img0, img1, uv0, uv_init, mask, **kw):
               jax.ShapeDtypeStruct((n,), jnp.float32))
     return jlk.FlowResult(*jax.pure_callback(host, shapes, img0, img1, uv0,
                                              uv_init, mask))
+
+
+def jax_pose_counter(cam, iters=40, huber_delta=2.4477, chi2_threshold=5.991,
+                     damping=1e-6):
+    """JAX's `pose_solver._solve_pose` jitted as `solve_pose` jits it, with
+    its while-loop's final counter (its state's `it`) sent to the host by a
+    callback around `jax.lax.while_loop` while it is traced. Returns
+    solve(T_init, pts, uv, mask) -> (PoseSolveResult, iterations), on
+    torch or numpy inputs."""
+    counts = []
+    orig = jax.lax.while_loop
+
+    def while_loop(cond, body, init):
+        out = orig(cond, body, init)
+        jax.debug.callback(lambda n: counts.append(int(n)), out[1])
+        return out
+
+    fn = jax.jit(functools.partial(
+        jps._solve_pose, cam=jcam.Camera.create(*cam), iters=iters,
+        huber_delta=huber_delta, chi2_threshold=chi2_threshold,
+        damping=damping))
+
+    def solve(*arrays):
+        jax.lax.while_loop = while_loop
+        try:
+            with jax.default_matmul_precision("float32"):
+                res = jax.block_until_ready(fn(*(jnp.asarray(np.asarray(a))
+                                                 for a in arrays)))
+        finally:
+            jax.lax.while_loop = orig
+        jax.effects_barrier()
+        return res, counts[-1]
+
+    return solve
+
+
+def pose_caps(path: str) -> dict:
+    """The `pose_caps` run: JAX's while-loop and the port's plain version
+    on the CPU against K4's recorded iterations, solve by solve."""
+    counters, rows = {}, []
+    with np.load(path) as z:
+        for i in range(int(z["n"])):
+            *inputs, cam, gn = selfcheck.load_pose_inputs(
+                z, device="cpu", prefix=f"{i}:")
+            key = (cam, json.dumps(gn, sort_keys=True))
+            if key not in counters:
+                counters[key] = jax_pose_counter(cam, **gn)
+            n_jax = counters[key](*inputs)[1]
+            n_plain = int(pose_solver.solve_pose_plain(
+                *inputs, cam, with_iters=True, **gn)[1])
+            rows.append(dict(kernel=int(z[f"{i}:iterations"]), jax=n_jax,
+                             plain_cpu=n_plain, cap=gn["iters"]))
+    names = ("kernel", "jax", "plain_cpu")
+    capped = {n: [i for i, r in enumerate(rows) if r[n] == r["cap"]]
+              for n in names}
+    out = dict(solves=len(rows), capped={n: len(v) for n, v in
+                                         capped.items()})
+    for a, b in (("kernel", "jax"), ("plain_cpu", "jax"),
+                 ("kernel", "plain_cpu")):
+        out[f"equal_{a}_{b}"] = sum(r[a] == r[b] for r in rows)
+        out[f"{a}_caps_{b}_exits"] = sorted(set(capped[a]) - set(capped[b]))
+        out[f"{b}_caps_{a}_exits"] = sorted(set(capped[b]) - set(capped[a]))
+    out["median"] = {n: float(np.median([r[n] for r in rows]))
+                     for n in names}
+    return out
 
 
 # VOConfig() with one option set: the `options` runs and textured_device
@@ -284,8 +361,11 @@ def main() -> None:
     ap.add_argument("--refine-frames", type=int,
                     default=chip_smoke.TEXTURED["n_frames"])
     ap.add_argument("--refine-tex", type=int, default=1024)
+    ap.add_argument("--solves", default=None,
+                    help="pose_caps: the bundle of `port_pose_gn.py "
+                    "collect --all-out`")
     args = ap.parse_args()
-    stamps = synthetic.render_sequence(**chip_smoke.SEQ)
+    stamps = None
     jax_lk = jlk.auto_track
     jlk.auto_track = tpu_semantics_lk
     names = args.runs.split(",")
@@ -312,6 +392,11 @@ def main() -> None:
             print(json.dumps(refine(args.refine_frames, args.refine_tex)),
                   flush=True)
             continue
+        if name == "pose_caps":
+            print(json.dumps(pose_caps(args.solves)), flush=True)
+            continue
+        if stamps is None and not name.startswith("textured"):
+            stamps = synthetic.render_sequence(**chip_smoke.SEQ)
         frames, poses_gt, *_, cam = textured() if name.startswith(
             "textured") else stamps
         print(json.dumps(run(name, frames, poses_gt, cam)), flush=True)

@@ -67,6 +67,31 @@ def test_inverse_compose_transform_match(tangents):
                                   np.asarray(jlie.rt_to_mat(R, t)))
 
 
+def test_se3_compose_and_identity_match(tangents):
+    T = np.asarray(jlie.se3_exp(jnp.asarray(tangents)))
+    A, B = T[:32], T[32:]
+    np.testing.assert_allclose(
+        tlie.se3_compose(_t(A), _t(B)).numpy(),
+        np.asarray(jlie.se3_compose(jnp.asarray(A), jnp.asarray(B))),
+        atol=ATOL)
+    eye = tlie.se3_identity()
+    assert eye.dtype == torch.float32
+    np.testing.assert_array_equal(eye.numpy(),
+                                  np.asarray(jlie.se3_identity()))
+    assert tlie.se3_identity(torch.float64).dtype == torch.float64
+
+
+@pytest.mark.parametrize("margin", [0, 5])
+def test_in_bounds_matches(margin):
+    rng = np.random.default_rng(9)
+    uv = rng.uniform(-20, 1260, size=(2, 300, 2)).astype(np.float32)
+    uv[0, :4] = [[0, 0], [1240, 375], [1240.5, 10], [5, 370]]  # the edges
+    out = tcamera.in_bounds(_t(uv), 376, 1241, margin).numpy()
+    ref = np.asarray(jcamera.in_bounds(jnp.asarray(uv), 376, 1241, margin))
+    np.testing.assert_array_equal(out, ref)
+    assert out.any() and not out.all()
+
+
 def test_camera_matches():
     jc = jcamera.Camera.create(718.856, 718.856, 607.1928, 185.2157)
     tc = tcamera.Camera.create(718.856, 718.856, 607.1928, 185.2157)

@@ -374,6 +374,9 @@ _WORKER = textwrap.dedent("""
     np.savez({out!r} + f"_{{pid}}.npz", poses=poses.numpy(),
              landmarks=lms.gather().numpy(), c0=float(c0), c1=float(c1))
     print(f"proc{{pid}} OK cost {{float(c0):.3f}}->{{float(c1):.3f}}")
+    # stop gloo's threads before the interpreter exits (left to exit,
+    # their teardown can abort the process after its OK)
+    torch.distributed.destroy_process_group()
 """)
 
 
@@ -437,6 +440,7 @@ _WORKER_2D = textwrap.dedent("""
         out[f"costs_{{iters}}"] = np.array([float(c0), float(c1)])
     np.savez({out!r} + f"_{{pid}}.npz", **out)
     print(f"proc{{pid}} OK")
+    torch.distributed.destroy_process_group()
 """)
 
 

@@ -99,6 +99,24 @@ def test_eight_point_and_sampson_match(two_view):
                    for i in range(4)) < 1e-4
 
 
+def test_epipolar_error_and_relative_pose_match(two_view):
+    """|x2^T F x1| against JAX's at F from the eight-point solve (rtol
+    1e-4: a float32 dot product of pixel-scale terms that cancel); the
+    relative pose assembled bit for bit."""
+    uv1, uv2, mask, K, poses = two_view
+    F = np.asarray(jepi.eight_point(uv1, uv2, mask))
+    err = tepi.epipolar_error(_t(F), _t(uv1), _t(uv2)).numpy()
+    ref = np.asarray(jepi.epipolar_error(jnp.asarray(F), uv1, uv2))
+    np.testing.assert_allclose(err, ref, rtol=1e-4, atol=1e-6)
+    assert np.median(err[mask]) < np.median(err[~mask])
+    R, t = poses[1][:3, :3].astype(np.float32), \
+        poses[1][:3, 3].astype(np.float32)
+    np.testing.assert_array_equal(
+        transac.relative_pose_to_se3(_t(R), _t(t)).numpy(),
+        np.asarray(jransac.relative_pose_to_se3(jnp.asarray(R),
+                                                jnp.asarray(t))))
+
+
 def test_ransac_with_injected_samples(two_view):
     """Same hypotheses on both sides: equal inlier masks and cheirality
     votes. F (up to sign and scale) and the unit t are compared through a

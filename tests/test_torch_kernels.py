@@ -327,6 +327,31 @@ def test_pose_gn_degenerate_problems_over_seeds(cuda, n_valid):
     assert taken["kernel"] >= taken["plain"] / 2
 
 
+# the recorded cases of `selfcheck.pose_gn_golden_cases` by problem: N on
+# both sides of a 2048-point round and past two rounds, every point masked
+# out and no point at all, the degenerate one- and two-point problems, a
+# real step's inputs and the solves that ran to the 40-iteration cap
+POSE_GOLDEN_GROUPS = {
+    "n37": ["n37_"], "n1000": ["n1000_"], "n1792": ["n1792_"],
+    "n2048": ["n2048_"], "n2049": ["n2049_"], "n3000": ["n3000_"],
+    "n6000": ["n6000_"], "empty": ["all_masked_", "n0_"],
+    "degenerate": ["valid1_", "valid2_"], "real_step": ["step_"],
+    "capped": ["capped_"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", list(POSE_GOLDEN_GROUPS))
+def test_pose_gn_kernel_equals_recorded_outputs(cuda, group):
+    """K4 bit for bit against the outputs recorded from the first K4 (one
+    block of 256 threads; tests/torch_data/pose_gn/golden.npz): pose,
+    inlier mask, n_inliers, final_cost and iterations at `iters` 1, 3 and
+    40, one launch a call, each call under `selfcheck.sync_within`'s
+    timeout."""
+    out = sc.check_pose_gn_goldens(prefixes=POSE_GOLDEN_GROUPS[group])
+    print(f"pose_gn goldens {group}: {json.dumps(out)}")
+    assert out["cases"] >= 3 and out["launches"] == out["cases"]
+
+
 @pytest.mark.cuda
 def test_pose_gn_reads_views_on_the_callers_stream(cuda):
     """Views that are not contiguous (the frontend hands the kernel slices
@@ -349,6 +374,7 @@ def test_pose_gn_reads_views_on_the_callers_stream(cuda):
     with torch.cuda.stream(side):
         got = pose_solver.solve_pose(T_t, wide[:, 1:4], uv_t, mask2[::2],
                                      cam)
+        sc.sync_within("pose_gn on a side stream")
     torch.cuda.current_stream().wait_stream(side)
     assert all(sc.bits_equal(a, b) for a, b in zip(got, ref))
 

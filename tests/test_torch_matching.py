@@ -82,6 +82,26 @@ def test_match_on_random_descriptors():
     np.testing.assert_array_equal(out.mask.numpy(), np.asarray(ref.mask))
 
 
+def test_gather_matched_uv_matches():
+    rng = np.random.default_rng(7)
+    d1, d2 = _desc(rng, 200), _desc(rng, 240)
+    d2[:150] = d1[rng.permutation(200)[:150]]
+    m1, m2 = rng.random(200) > 0.1, np.ones(240, bool)
+    uv1 = rng.uniform(0, 1241, size=(200, 2)).astype(np.float32)
+    uv2 = rng.uniform(0, 1241, size=(240, 2)).astype(np.float32)
+    ref = jmatching.gather_matched_uv(
+        jnp.asarray(uv1), jnp.asarray(uv2),
+        jmatching.match(jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(m1),
+                        jnp.asarray(m2)))
+    out = tmatching.gather_matched_uv(
+        torch.as_tensor(uv1), torch.as_tensor(uv2),
+        tmatching.match(_t(d1), _t(d2), torch.as_tensor(m1),
+                        torch.as_tensor(m2)))
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(out[2].sum()) > 100
+
+
 def test_cpu_tensors_do_not_count_launches():
     rng = np.random.default_rng(1)
     _build.reset_launches()

@@ -4,8 +4,6 @@ early exit against JAX's while-loop. On the CPU `solve_pose` takes
 `solve_pose_plain`; its CUDA kernel (K4) is held against the plain version
 on the card by tests/test_torch_kernels.py."""
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +14,7 @@ from ya_vo_tpu.core import camera as jcam
 from ya_vo_tpu.core import lie as jlie
 from ya_vo_tpu.tracking import pose_solver as jps
 from ya_vo_tpu.utils import synthetic
+from port_jax_reference import jax_pose_counter
 from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.core.camera import Camera
 from ya_vo_tpu_torch.tracking import pose_solver as tps
@@ -72,29 +71,12 @@ def test_solve_pose_converges(problem):
 # ---------------------------------------------------------------------------
 # The early exit: the plain version's iterations against JAX's while-loop
 # ---------------------------------------------------------------------------
-def jax_solve_counted(T_init, pts, uv, mask, cam, iters=40):
+def jax_solve_counted(T_init, pts, uv, mask, cam, **gn):
     """`pose_solver._solve_pose` jitted as `solve_pose` jits it, with the
-    while-loop's final counter (its state's `it`) sent to the host.
-    Returns (PoseSolveResult, iterations)."""
-    counts = []
-    orig = jax.lax.while_loop
-
-    def while_loop(cond, body, init):
-        out = orig(cond, body, init)
-        jax.debug.callback(lambda n: counts.append(int(n)), out[1])
-        return out
-
-    jc = jcam.Camera.create(*cam)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax.lax, "while_loop", while_loop)
-        fn = jax.jit(functools.partial(
-            jps._solve_pose, cam=jc, iters=iters, huber_delta=2.4477,
-            chi2_threshold=5.991, damping=1e-6))
-        with jax.default_matmul_precision("float32"):
-            res = jax.block_until_ready(fn(*(jnp.asarray(a.numpy()) for a in
-                                             (T_init, pts, uv, mask))))
-    jax.effects_barrier()
-    return res, counts[-1]
+    while-loop's final counter (its state's `it`) sent to the host
+    (`port_jax_reference.jax_pose_counter`). Returns (PoseSolveResult,
+    iterations)."""
+    return jax_pose_counter(cam, **gn)(T_init, pts, uv, mask)
 
 
 EXIT_CASES = {
@@ -205,3 +187,86 @@ def test_degenerate_parity_catches_a_wrong_step(monkeypatch):
     monkeypatch.setattr(tps, "solve_pose", half_step)
     with pytest.raises(RuntimeError, match="linear model"):
         sc.pose_gn_parity(T, pts, uv, mask, cam)
+
+
+# ---------------------------------------------------------------------------
+# Recorded inputs (tests/torch_data/pose_gn): the solves of chip_smoke.py
+# phase 8's frames that ran to the 40-iteration cap on the card
+# ---------------------------------------------------------------------------
+CAPPED = sorted(sc.POSE_DATA.glob("capped_*.npz"))
+
+
+@pytest.mark.parametrize("path", CAPPED, ids=lambda p: p.stem)
+def test_capped_solves_against_jax_while_loop(path):
+    """On each recorded solve that K4 ran to the 40-iteration cap on the
+    card, JAX's while-loop (`_solve_pose` jitted, its count read through
+    the host callback) against the plain version on the CPU: the port's
+    plain version does not cap where JAX exits early (the fault this test
+    looks for), and the two end on the same float32 point, where a step
+    norm hovering near the 1e-5 exit decides by rounding whether a solver
+    stops (PERF.md section 6): translations within 2 float32
+    spacings of the largest |t| (1.2 measured), rotations within 2e-7
+    (1.1e-7), equal inlier counts, costs within 1e-4 relative (1.4e-5)."""
+    T, pts, uv, mask, cam, gn = sc.load_pose_inputs(path, device="cpu")
+    ref, n_jax = jax_solve_counted(T, pts, uv, mask, cam, **gn)
+    out, n_plain = tps.solve_pose_plain(T, pts, uv, mask, cam,
+                                        with_iters=True, **gn)
+    print(f"{path.stem}: JAX {n_jax}, plain {int(n_plain)} iterations")
+    assert not (int(n_plain) == gn["iters"] and n_jax < gn["iters"])
+    P, P_ref = out.pose.numpy(), np.asarray(ref.pose)
+    spacing = np.spacing(np.abs(P_ref[:3, 3]).max())
+    assert np.abs(P[:3, 3] - P_ref[:3, 3]).max() <= 2 * spacing
+    np.testing.assert_allclose(P[:3, :3], P_ref[:3, :3], atol=2e-7)
+    assert int(out.n_inliers) == int(ref.n_inliers)
+    np.testing.assert_allclose(float(out.final_cost), float(ref.final_cost),
+                               rtol=1e-4)
+
+
+def test_recorded_inputs_round_trip(tmp_path):
+    """`save_pose_inputs` / `load_pose_inputs` keep every bit, the camera
+    and the GN keywords."""
+    T, pts, uv, mask, cam = sc.pose_gn_problem(device="cpu", n=300, seed=5)
+    gn = dict(iters=40, huber_delta=2.4477, chi2_threshold=5.991)
+    sc.save_pose_inputs(tmp_path / "x.npz", T, pts, uv, mask, cam, gn,
+                        frame=np.int64(3))
+    *got, cam2, gn2 = sc.load_pose_inputs(tmp_path / "x.npz", device="cpu")
+    assert all(sc.bits_equal(a, b) for a, b in zip(got, (T, pts, uv, mask)))
+    assert cam2 == cam and gn2 == gn
+
+
+def test_golden_record_and_check_round_trip(tmp_path, monkeypatch):
+    """`record_pose_gn_goldens` then `check_pose_gn_goldens` on the CPU
+    (the plain version on both sides, a few seeded problems and one inputs
+    file) pass, and a changed output bit fails them."""
+    monkeypatch.setattr(sc, "POSE_GOLDEN_SEEDED",
+                        dict(n37=dict(n=37, seed=2), all_masked=dict(
+                            n=64, n_valid=0)))
+    T, pts, uv, mask, cam = sc.pose_gn_problem(device="cpu", n=200, seed=9)
+    sc.save_pose_inputs(tmp_path / "capped_f001.npz", T, pts, uv, mask, cam,
+                        dict(iters=40, huber_delta=2.4477,
+                             chi2_threshold=5.991))
+    path = tmp_path / sc.POSE_GOLDEN.name
+    assert sc.record_pose_gn_goldens(path, device="cpu",
+                                     data=tmp_path) == 4 * 3
+    out = sc.check_pose_gn_goldens(path, device="cpu")
+    assert out["cases"] == 12 and out["launches"] == 0
+    assert sc.check_pose_gn_goldens(path, device="cpu",
+                                    prefixes=["capped_"])["cases"] == 3
+    with np.load(path) as z:
+        rec = dict(z)
+    rec["n37_iters3:pose"] = rec["n37_iters3:pose"] ^ 1
+    np.savez(path, **rec)
+    with pytest.raises(RuntimeError, match="n37_iters3 \\(pose\\)"):
+        sc.check_pose_gn_goldens(path, device="cpu")
+
+
+def test_golden_file_covers_every_case():
+    """The committed goldens hold exactly the cases `pose_gn_golden_cases`
+    makes (the seeded problems, no point, the real step and the capped
+    solves, each at `iters` 1, 3 and 40)."""
+    with np.load(sc.POSE_GOLDEN) as z:
+        keys = {k.rsplit(":", 1)[0] for k in z.files}
+        assert len(z.files) == len(keys) * len(sc.POSE_OUTPUTS)
+    names = [k for k, *_ in sc.pose_gn_golden_cases(device="cpu")]
+    assert set(names) == keys and len(names) == len(keys)
+    assert len(CAPPED) >= 4 and any(k.startswith("step_") for k in keys)

@@ -66,6 +66,8 @@ _SIGNATURES = {
     # out_cost, out_iters, stream
     "yavo_pose_gn": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                      _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    # the blocks of pose_gn's cluster (no arguments)
+    "yavo_pose_gn_cluster_size": [],
 }
 
 _lib = None
@@ -76,9 +78,9 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(Path(csrc).glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libyavo_kernels.so"
@@ -91,17 +93,18 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists:
-    one nvcc a source, in parallel, then one link."""
-    out = library_path()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile `csrc`/*.cu (by default this package's) into the hashed
+    library unless it already exists: one nvcc a source, in parallel, then
+    one link."""
+    out = library_path(csrc)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         jobs = []
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in sorted(Path(csrc).glob("*.cu")):
             obj = os.path.join(tmp, src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
@@ -125,15 +128,25 @@ def build() -> Path:
     return out
 
 
+def load_library(path: Path) -> ctypes.CDLL:
+    """A built kernel library with its functions' argument types set (of
+    those it has: an older checkout's library may lack some)."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES.items():
+        if not hasattr(lib, fn):
+            continue
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). Setting `_lib` to
+    another `load_library` result makes the wrappers launch its kernels
+    (`port_pose_gn.py` runs two trees' K4 in one process so)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _lib = lib
+        _lib = load_library(build())
     return _lib
 
 

@@ -51,3 +51,10 @@ class Camera(NamedTuple):
     def projection_matrix(self, T_wc: torch.Tensor) -> torch.Tensor:
         """P = K [R|t] for world->camera poses [..., 4, 4] -> [..., 3, 4]."""
         return self.K(T_wc.device) @ T_wc[..., :3, :4]
+
+
+def in_bounds(uv: torch.Tensor, height: int, width: int, margin: int = 0):
+    """Boolean mask [...,] of pixels at least `margin` inside the image."""
+    u, v = uv[..., 0], uv[..., 1]
+    return ((u >= margin) & (u <= width - 1 - margin)
+            & (v >= margin) & (v <= height - 1 - margin))

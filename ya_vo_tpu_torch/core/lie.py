@@ -109,6 +109,11 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return rt_to_mat(Rt, -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3]))
 
 
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for batched 4x4 transforms."""
+    return A @ B
+
+
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply [..., 4, 4] to points [..., N, 3] (or [..., 3]) -> same shape."""
     R = T[..., :3, :3]
@@ -116,3 +121,7 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     if pts.dim() == T.dim():  # [..., N, 3] against T [..., 4, 4]
         return torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
     return torch.einsum("...ij,...j->...i", R, pts) + t
+
+
+def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)

@@ -1,5 +1,5 @@
 // Robust pose-only Gauss-Newton on SE(3): the whole loop, its early exit
-// and its epilogue in one launch, one thread block a solve.
+// and its epilogue in one launch of one thread-block cluster.
 //
 // Replaces the device-side loop of ya_vo_tpu/tracking/pose_solver.py:
 // _solve_pose, a jax.lax.while_loop (not a Pallas kernel) that XLA runs
@@ -24,36 +24,61 @@
 // with its mask) and writes one mask byte, about 43 KB for 2048 points
 // (~13 ns of HBM), and does ~180 operations a valid point an iteration (a
 // masked point adds nothing; ~16 ns of f32 peak for 300 valid points and
-// 10 iterations). The kernel is far from both: each
-// iteration is a serial chain (a block reduction of 27 sums, a 6x6 solve
-// and an exponential in one thread, two barriers), so its time is that
+// 10 iterations). The kernel is far from both: an iteration is a chain of
+// dependent steps (each point's terms, the 27 sums, a 6x6 solve and an
+// exponential in one thread, barriers between them), so its time is that
 // chain's latency times the iterations the data needs.
 //
-// What the design does about it: one block of 256 threads holds the first
-// 2048 points in registers (8 a thread, loaded once; only T changes between
-// iterations, kept in shared memory), so at the main path's sizes an
-// iteration touches no device memory; points past 2048 (a track table
-// larger than VOConfig()'s) are read again from device memory each
-// iteration. The loop ends on the device as soon as the step is small, so a
-// well-seeded frame pays for the few iterations it needs and not 40; the
-// host sees one launch and never reads the exit.
+// The order of the sums, which fixes the bits. Every sum is taken in the
+// order of a reference schedule of one block of 256 threads: thread
+// t = 32 w + l (warp w, lane l) adds the terms of its points t + 256 k for
+// k = 0, 1, ... in k order, starting from 0; a warp folds its 32 sums with
+// an xor butterfly (16, 8, 4, 2, 1), which leaves the same bits in every
+// lane; the 8 warps' partials are added in warp order, starting from 0.
+// There are no atomics. The build's -fmad=false makes every multiply and
+// add round on its own, so any schedule that keeps each expression and this
+// order gives the same bits (two calls too), whatever runs where.
 //
-// Determinism: every sum is taken in a fixed order (each thread over its
-// register points in order, then over its points past 2048 in order, xor
-// butterflies within a warp, which leave the same bits in every lane, then
-// the warps' partials in warp order) with no atomics, so two calls on the
-// same inputs are bit-equal.
+// The design: a cluster of 8 blocks of 256 threads, block c standing in
+// for the reference's warp c, so that an iteration costs one point a thread
+// where one block took eight.
+//  * Thread (s, l) of block c (warp s, lane l) takes the point that the
+//    reference thread 32 c + l takes at k = 8 r + s, in round r = 0, 1, ...
+//    (a round is 2048 points: round 0's point is loaded once and kept in
+//    registers, later rounds' are read from device memory each iteration),
+//    and writes its 27 terms to shared memory.
+//  * Warp j then adds, for each of its sums q = j, j + 8, ..., lane l's
+//    terms over the 8 slices of every round in order: the reference thread
+//    32 c + l's sum. The butterfly gives the reference warp c's partial,
+//    and lanes 0-7 write it into blocks 0-7's shared memory (distributed
+//    shared memory; two buffers, by iteration parity, so a block that runs
+//    ahead never overwrites partials another block is still reading).
+//  * After cluster.sync() every block adds the 8 partials in warp order,
+//    solves, guards and takes the step and reads the exit itself: the same
+//    bits in the same code, so every block holds the same T and leaves the
+//    loop at the same iteration, with no broadcast to wait for.
+//  * The epilogue folds the cost and the counts the same way into block 0,
+//    which writes the outputs; each point's inlier flag is written by the
+//    thread that owns it.
+// Neither the cluster's size nor the shared memory depends on N: any N runs
+// in rounds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int REF_THREADS = 256;              // the reference block
+constexpr int CLUSTER = REF_THREADS / 32;     // one block per reference warp
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int PER_THREAD = 8;
-constexpr int MAX_N = THREADS * PER_THREAD;
+constexpr int SLICES = THREADS / 32;          // k values a round
+constexpr int ROUND = SLICES * REF_THREADS;   // points a round
 constexpr int NH = 21;          // H's upper triangle, row by row
 constexpr int NSUM = NH + 6;    // then b's six entries (before the sign)
+// the sums warp s folds: q = s + SLICES j
+constexpr int SUMS_PER_WARP = (NSUM + SLICES - 1) / SLICES;
 
 struct Problem {
   const float* T_init; int t_s0, t_s1;
@@ -100,13 +125,15 @@ __device__ __forceinline__ void load_point(const Problem& p, long long i,
   m = in && p.mask[i * p.m_s0] != 0;
 }
 
-// One point's terms of H's upper triangle and of b (before the sign) under
-// T, added to acc. Every point takes part, a masked one with weight 0 (as
-// in the plain version, where 0 * J adds nothing unless J is not finite).
-__device__ __forceinline__ void accumulate(const float* T, const Problem& p,
-                                           float px, float py, float pz,
-                                           float uo, float vo, bool m,
-                                           float (&acc)[NSUM]) {
+// One point's 27 terms under T: H's upper triangle, row by row, then b
+// (before the sign), each term = J0[a] jw0[l] + J1[a] jw1[l], the
+// expression whose sum over points is the normal equations. Every point
+// takes part, a masked one with weight 0 (as in the plain version, where
+// 0 * J adds nothing unless J is not finite).
+__device__ __forceinline__ void point_terms(const float* T, const Problem& p,
+                                            float px, float py, float pz,
+                                            float uo, float vo, bool m,
+                                            float (&t)[NSUM]) {
   float r0, r1, Z, J0[6], J1[6];
   residual(T, p, px, py, pz, uo, vo, r0, r1, Z, J0, J1);
   const float chi2 = r0 * r0 + r1 * r1;
@@ -124,33 +151,28 @@ __device__ __forceinline__ void accumulate(const float* T, const Problem& p,
 #pragma unroll
   for (int a = 0; a < 6; ++a)
 #pragma unroll
-    for (int l = a; l < 6; ++l)
-      acc[q++] += J0[a] * jw0[l] + J1[a] * jw1[l];
+    for (int l = a; l < 6; ++l) t[q++] = J0[a] * jw0[l] + J1[a] * jw1[l];
 #pragma unroll
-  for (int a = 0; a < 6; ++a) acc[NH + a] += jw0[a] * r0 + jw1[a] * r1;
+  for (int a = 0; a < 6; ++a) t[NH + a] = jw0[a] * r0 + jw1[a] * r1;
 }
 
 // The epilogue's terms of point i at the final T: its inlier flag (written
-// out), and its Huber cost, validity and inlier count added to the sums.
-__device__ __forceinline__ void finish_point(const float* T, const Problem& p,
-                                             long long i, float px, float py,
-                                             float pz, float uo, float vo,
-                                             bool m,
-                                             unsigned char* out_inliers,
-                                             float& csum, int& n_valid,
-                                             int& n_inl) {
+// out), its Huber cost, and whether it is valid and an inlier.
+__device__ __forceinline__ float finish_point(const float* T, const Problem& p,
+                                              long long i, float px, float py,
+                                              float pz, float uo, float vo,
+                                              bool m,
+                                              unsigned char* out_inliers,
+                                              bool& valid, bool& inl) {
   float r0, r1, Z, J0[6], J1[6];
   residual(T, p, px, py, pz, uo, vo, r0, r1, Z, J0, J1);
   const float chi2 = r0 * r0 + r1 * r1;
-  const bool valid = m && Z > 1e-3f;
-  const bool inl = valid && chi2 <= p.chi2_threshold;
+  valid = m && Z > 1e-3f;
+  inl = valid && chi2 <= p.chi2_threshold;
   out_inliers[i] = inl;
   const float nrm = sqrtf(chi2 < 1e-12f ? 1e-12f : chi2);
-  const float cost = nrm <= p.huber_delta
+  return nrm <= p.huber_delta
       ? 0.5f * chi2 : p.huber_delta * (nrm - 0.5f * p.huber_delta);
-  if (valid) csum += cost;
-  n_valid += valid;
-  n_inl += inl;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -177,13 +199,16 @@ __device__ void lu_solve6(float (&A)[6][6], float (&x)[6]) {
 #pragma unroll
     for (int i = k + 1; i < 6; ++i)
       if (fabsf(A[i][k]) > best) { best = fabsf(A[i][k]); piv = i; }
-    if (piv != k) {
+    // the row swap over constant indices keeps A in registers
 #pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        const float t = A[k][j]; A[k][j] = A[piv][j]; A[piv][j] = t;
+    for (int i = k + 1; i < 6; ++i)
+      if (i == piv) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+          const float t = A[k][j]; A[k][j] = A[i][j]; A[i][j] = t;
+        }
+        const float t = x[k]; x[k] = x[i]; x[i] = t;
       }
-      const float t = x[k]; x[k] = x[piv]; x[piv] = t;
-    }
 #pragma unroll
     for (int i = k + 1; i < 6; ++i) {
       const float l = A[i][k] / A[k][k];
@@ -240,86 +265,120 @@ __device__ void se3_update(const float (&xi)[6], float* T) {
   for (int k = 0; k < 16; ++k) T[k] = out[k];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The GN step at the summed normal equations hb (block-shared), taken by
+// one thread: the 6x6 solve, the guard and T := se3_exp(dx) T. Returns
+// whether the loop ends (||dx|| <= 1e-5, a zeroed step included).
+__device__ bool gn_update(const float* hb, float damping, float* T) {
+  float A[6][6], dx[6];
+  int q = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int l = a; l < 6; ++l) A[a][l] = A[l][a] = hb[q++];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    A[a][a] += damping;
+    dx[a] = -hb[NH + a];
+  }
+  lu_solve6(A, dx);
+  bool finite = true;
+  float ss = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    finite = finite && isfinite(dx[a]);
+    ss += dx[a] * dx[a];
+  }
+  float step = sqrtf(ss);
+  if (!(finite && step < 1.0f)) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) dx[a] = 0.0f;
+    step = 0.0f;
+  }
+  se3_update(dx, T);
+  return !(step > 1e-5f);
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 pose_gn_kernel(Problem p, float* __restrict__ out_pose,
                unsigned char* __restrict__ out_inliers,
                long long* __restrict__ out_n_inliers,
                float* __restrict__ out_cost, int* __restrict__ out_iters) {
   __shared__ float sT[16];
-  __shared__ float red[WARPS][NSUM];
+  __shared__ float terms[NSUM][SLICES][32];   // a round's terms
+  __shared__ float red[2][CLUSTER][NSUM];     // the reference warps' partials
   __shared__ float hb[NSUM];
   __shared__ int s_done;
-  __shared__ int ired[WARPS][2];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ float e_cost[SLICES][32];        // the epilogue's terms
+  __shared__ unsigned char e_flags[SLICES][32];
+  __shared__ float e_red[CLUSTER];            // its partials, in block 0
+  __shared__ int e_ired[CLUSTER][2];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, s = tid >> 5;
+  const int rounds = (int)((p.N + (long long)ROUND - 1) / ROUND);
+  // the reference thread 32 c + lane's point at k = SLICES * r + slice
+  const auto point = [&](int r, int slice) {
+    return (long long)REF_THREADS * (SLICES * r + slice) + 32 * c + lane;
+  };
 
   if (tid < 16) sT[tid] = p.T_init[(tid >> 2) * p.t_s0 + (tid & 3) * p.t_s1];
-  // this thread's first points: i = k * THREADS + tid, loaded once; its
-  // points past MAX_N (i = MAX_N + tid + j * THREADS) are read when used
-  float px[PER_THREAD], py[PER_THREAD], pz[PER_THREAD];
-  float uo[PER_THREAD], vo[PER_THREAD];
-  bool m[PER_THREAD];
-#pragma unroll
-  for (int k = 0; k < PER_THREAD; ++k)
-    load_point(p, k * THREADS + tid, px[k], py[k], pz[k], uo[k], vo[k], m[k]);
-  __syncthreads();
+  float px, py, pz, uo, vo;
+  bool m;
+  load_point(p, point(0, s), px, py, pz, uo, vo, m);
+  cluster.sync();  // every block has started before any writes into it
 
   int it = 0;
   while (it < p.iters) {
-    float acc[NSUM];
+    float acc[SUMS_PER_WARP];
 #pragma unroll
-    for (int q = 0; q < NSUM; ++q) acc[q] = 0.0f;
+    for (int j = 0; j < SUMS_PER_WARP; ++j) acc[j] = 0.0f;
+    for (int r = 0; r < rounds; ++r) {
+      const long long i = point(r, s);
+      if (i < p.N) {
+        float t[NSUM];
+        if (r == 0) {
+          point_terms(sT, p, px, py, pz, uo, vo, m, t);
+        } else {
+          float qx, qy, qz, qu, qv;
+          bool qm;
+          load_point(p, i, qx, qy, qz, qu, qv, qm);
+          point_terms(sT, p, qx, qy, qz, qu, qv, qm, t);
+        }
 #pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k)
-      if (k * THREADS + tid < p.N)
-        accumulate(sT, p, px[k], py[k], pz[k], uo[k], vo[k], m[k], acc);
-    for (long long i = MAX_N + tid; i < p.N; i += THREADS) {
-      float qx, qy, qz, qu, qv;
-      bool qm;
-      load_point(p, i, qx, qy, qz, qu, qv, qm);
-      accumulate(sT, p, qx, qy, qz, qu, qv, qm, acc);
+        for (int q = 0; q < NSUM; ++q) terms[q][s][lane] = t[q];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < SUMS_PER_WARP; ++j) {
+        const int q = s + SLICES * j;
+        if (q < NSUM) {
+#pragma unroll
+          for (int sl = 0; sl < SLICES; ++sl)
+            if (point(r, sl) < p.N) acc[j] += terms[q][sl][lane];
+        }
+      }
+      if (r + 1 < rounds) __syncthreads();
     }
+    // the reference warp c's partials, into every block's red[it & 1][c]
 #pragma unroll
-    for (int q = 0; q < NSUM; ++q) {
-      const float v = warp_sum(acc[q]);
-      if (lane == 0) red[warp][q] = v;
+    for (int j = 0; j < SUMS_PER_WARP; ++j) {
+      const int q = s + SLICES * j;
+      if (q < NSUM) {
+        const float v = warp_sum(acc[j]);
+        if (lane < CLUSTER)
+          *cluster.map_shared_rank(&red[it & 1][c][q], lane) = v;
+      }
     }
-    __syncthreads();
+    cluster.sync();
     if (tid < NSUM) {
-      float s = 0.0f;
+      float sum = 0.0f;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) s += red[w][tid];
-      hb[tid] = s;
+      for (int w = 0; w < CLUSTER; ++w) sum += red[it & 1][w][tid];
+      hb[tid] = sum;
     }
     __syncthreads();
-    if (tid == 0) {
-      float A[6][6], dx[6];
-      int q = 0;
-#pragma unroll
-      for (int a = 0; a < 6; ++a)
-#pragma unroll
-        for (int l = a; l < 6; ++l) A[a][l] = A[l][a] = hb[q++];
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        A[a][a] += p.damping;
-        dx[a] = -hb[NH + a];
-      }
-      lu_solve6(A, dx);
-      bool finite = true;
-      float ss = 0.0f;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        finite = finite && isfinite(dx[a]);
-        ss += dx[a] * dx[a];
-      }
-      float step = sqrtf(ss);
-      if (!(finite && step < 1.0f)) {
-#pragma unroll
-        for (int a = 0; a < 6; ++a) dx[a] = 0.0f;
-        step = 0.0f;
-      }
-      se3_update(dx, sT);
-      s_done = !(step > 1e-5f);
-    }
+    if (tid == 0) s_done = gn_update(hb, p.damping, sT);
     __syncthreads();
     ++it;
     if (s_done) break;
@@ -328,39 +387,59 @@ pose_gn_kernel(Problem p, float* __restrict__ out_pose,
   // the epilogue at the final T: inliers, their count, the Huber mean cost
   float csum = 0.0f;
   int n_valid = 0, n_inl = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const long long i = point(r, s);
+    if (i < p.N) {
+      bool valid, inl;
+      float cost;
+      if (r == 0) {
+        cost = finish_point(sT, p, i, px, py, pz, uo, vo, m, out_inliers,
+                            valid, inl);
+      } else {
+        float qx, qy, qz, qu, qv;
+        bool qm;
+        load_point(p, i, qx, qy, qz, qu, qv, qm);
+        cost = finish_point(sT, p, i, qx, qy, qz, qu, qv, qm, out_inliers,
+                            valid, inl);
+      }
+      e_cost[s][lane] = cost;
+      e_flags[s][lane] = (unsigned char)(valid | (inl << 1));
+    }
+    __syncthreads();
+    if (s == 0) {
 #pragma unroll
-  for (int k = 0; k < PER_THREAD; ++k) {
-    const int i = k * THREADS + tid;
-    if (i < p.N)
-      finish_point(sT, p, i, px[k], py[k], pz[k], uo[k], vo[k], m[k],
-                   out_inliers, csum, n_valid, n_inl);
+      for (int sl = 0; sl < SLICES; ++sl)
+        if (point(r, sl) < p.N) {
+          const int f = e_flags[sl][lane];
+          if (f & 1) csum += e_cost[sl][lane];
+          n_valid += f & 1;
+          n_inl += f >> 1;
+        }
+    }
+    if (r + 1 < rounds) __syncthreads();
   }
-  for (long long i = MAX_N + tid; i < p.N; i += THREADS) {
-    float qx, qy, qz, qu, qv;
-    bool qm;
-    load_point(p, i, qx, qy, qz, qu, qv, qm);
-    finish_point(sT, p, i, qx, qy, qz, qu, qv, qm, out_inliers, csum,
-                 n_valid, n_inl);
+  if (s == 0) {
+    csum = warp_sum(csum);
+    n_valid = warp_sum(n_valid);
+    n_inl = warp_sum(n_inl);
+    if (lane == 0) {
+      *cluster.map_shared_rank(&e_red[c], 0) = csum;
+      *cluster.map_shared_rank(&e_ired[c][0], 0) = n_valid;
+      *cluster.map_shared_rank(&e_ired[c][1], 0) = n_inl;
+    }
   }
-  csum = warp_sum(csum);
-  n_valid = warp_sum(n_valid);
-  n_inl = warp_sum(n_inl);
-  if (lane == 0) {
-    red[warp][0] = csum;
-    ired[warp][0] = n_valid;
-    ired[warp][1] = n_inl;
-  }
-  __syncthreads();
+  cluster.sync();
+  if (c != 0) return;
   if (tid == 0) {
-    float s = 0.0f;
+    float sum = 0.0f;
     int nv = 0, ni = 0;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      s += red[w][0];
-      nv += ired[w][0];
-      ni += ired[w][1];
+    for (int w = 0; w < CLUSTER; ++w) {
+      sum += e_red[w];
+      nv += e_ired[w][0];
+      ni += e_ired[w][1];
     }
-    *out_cost = s / (float)(nv > 1 ? nv : 1);
+    *out_cost = sum / (float)(nv > 1 ? nv : 1);
     *out_n_inliers = ni;
     *out_iters = it;
   }
@@ -382,7 +461,11 @@ extern "C" int yavo_pose_gn(const float* T_init, int t_s0, int t_s1,
   if (N < 0 || iters < 0) return (int)cudaErrorInvalidValue;
   Problem p{T_init, t_s0, t_s1, pts, p_s0, p_s1, uv, u_s0, u_s1, mask, m_s0,
             N, iters, fx, fy, cx, cy, huber_delta, chi2_threshold, damping};
-  pose_gn_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+  // one cluster (its size is the kernel's __cluster_dims__); a launch the
+  // card refuses returns its error here
+  pose_gn_kernel<<<CLUSTER, THREADS, 0, (cudaStream_t)stream>>>(
       p, out_pose, out_inliers, out_n_inliers, out_cost, out_iters);
   return (int)cudaGetLastError();
 }
+
+extern "C" int yavo_pose_gn_cluster_size() { return CLUSTER; }

@@ -49,3 +49,8 @@ def match(desc1, desc2, mask1, mask2, *, abs_threshold: int = 20,
     min_dist = torch.where(ok, dist, INVALID_DIST).min()
     gate = torch.clamp(2 * min_dist, min=abs_threshold)
     return MatchResult(idx2=idx2, dist=dist, mask=ok & (dist < gate))
+
+
+def gather_matched_uv(uv1, uv2, result: MatchResult):
+    """Return (pts1 [K1,2], pts2 [K1,2], mask [K1]) of matched pixel pairs."""
+    return uv1, uv2[result.idx2], result.mask

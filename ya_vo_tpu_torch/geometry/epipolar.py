@@ -75,6 +75,12 @@ def eight_point(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor):
     return Fm / torch.clamp(norm, min=1e-12)[..., None, None]
 
 
+def epipolar_error(F: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor):
+    """Algebraic error |x2^T F x1| per correspondence [..., N]."""
+    Fx1 = torch.einsum("...ij,...nj->...ni", F, to_homogeneous(pts1))
+    return (to_homogeneous(pts2) * Fx1).sum(-1).abs()
+
+
 def sampson_error(F: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor):
     """First-order geometric error (squared pixels), [..., N]."""
     x1 = to_homogeneous(pts1)

@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ya_vo_tpu_torch.core import lie
 from ya_vo_tpu_torch.geometry import epipolar
 from ya_vo_tpu_torch.geometry.triangulation import triangulate
 
@@ -79,3 +80,8 @@ def estimate_two_view(uv1, uv2, mask, K, generator: Optional[torch.Generator]
                          inlier_mask=inlier_mask, n_inliers=inlier_mask.sum(),
                          points=pts_c[win], points_valid=val_c[win],
                          n_cheirality=votes[win])
+
+
+def relative_pose_to_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) with x2 = R x1 + t  ->  SE(3) T_21 (cam1->cam2) 4x4."""
+    return lie.rt_to_mat(R, t)

@@ -32,8 +32,11 @@ PyTorch library call's time where one computes the same function.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,6 +47,7 @@ from ya_vo_tpu_torch import _build
 from ya_vo_tpu_torch.config import VOConfig, with_option
 from ya_vo_tpu_torch.features import brief, fast, fast_cuda, hamming_cuda
 from ya_vo_tpu_torch.core import lie
+from ya_vo_tpu_torch.core.camera import Camera
 from ya_vo_tpu_torch.tracking import lk, lk_cuda, pose_solver
 from ya_vo_tpu_torch.tracking.frontend import detect_kwargs, gn_kwargs
 from ya_vo_tpu_torch.utils import scene, synthetic
@@ -737,6 +741,8 @@ def pose_gn_parity(T_init, pts, uv, mask, cam, **gn) -> dict:
     k, k_it = pose_solver.solve_pose(T_init, pts, uv, mask, cam,
                                      with_iters=True, **gn)
     k2 = pose_solver.solve_pose(T_init, pts, uv, mask, cam, **gn)
+    if T_init.is_cuda:
+        sync_within(f"pose_gn at N = {len(mask)}")
     check(all(bits_equal(a, b) for a, b in zip(k, k2)),
           "pose_gn: two calls on the same inputs differ")
     p, p_it = pose_solver.solve_pose_plain(T_init, pts, uv, mask, cam,
@@ -857,6 +863,159 @@ def check_pose_gn(T_init, pts, uv, mask, cam, **gn) -> dict:
                 plain_ms=time_ms(lambda: pose_solver.solve_pose_plain(
                     T_init, pts, uv, mask, cam, **gn), reps=5),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# K4's recorded cases: solve inputs kept as files, and the outputs of the
+# first K4 (one block of 256 threads) on every case, bit for bit
+# ---------------------------------------------------------------------------
+# step.npz: a real step's inputs (`textured_solve_inputs`); capped_*.npz:
+# solves of chip_smoke.py phase 8's frames that ran to the 40-iteration
+# cap; golden.npz: `record_pose_gn_goldens`' outputs (`port_pose_gn.py`)
+POSE_DATA = (Path(__file__).resolve().parent.parent / "tests" / "torch_data"
+             / "pose_gn")
+POSE_GOLDEN = POSE_DATA / "golden.npz"
+POSE_GOLDEN_ITERS = (1, 3, 40)
+POSE_OUTPUTS = ("pose", "inliers", "n_inliers", "final_cost", "iterations")
+# `pose_gn_problem`'s arguments of the seeded cases: N on both sides of
+# 2048 (a round of the cluster) and past two rounds, every point masked
+# out, and the degenerate one- and two-point problems over 20 seeds
+POSE_GOLDEN_SEEDED = dict(
+    n2048={}, n1000=dict(n=1000, seed=1), n37=dict(n=37, seed=2),
+    n1792=dict(n=1792, seed=5), n2049=dict(n=2049, seed=6),
+    n3000=dict(n=3000, seed=4), n6000=dict(n=6000, seed=7),
+    all_masked=dict(n_valid=0),
+    **{f"valid{v}_seed{s}": dict(n_valid=v, seed=s)
+       for v in (1, 2) for s in range(20)})
+SYNC_TIMEOUT_S = 60.0
+
+
+def sync_within(what: str, seconds: float = SYNC_TIMEOUT_S) -> None:
+    """Wait for the current stream's work, at most `seconds`; past that,
+    print and end the process: a cluster whose blocks wait on each other
+    forever leaves the card's context unusable, so nothing later could
+    run."""
+    done = torch.cuda.Event()
+    done.record()
+    t_end = time.monotonic() + seconds
+    while not done.query():
+        if time.monotonic() > t_end:
+            print(f"{what}: the card has not finished after {seconds} s",
+                  file=sys.stderr, flush=True)
+            os._exit(3)
+        time.sleep(1e-4)
+
+
+def pose_inputs_arrays(T_init, pts, uv, mask, cam, gn: dict,
+                       prefix: str = "") -> dict:
+    """One solve's inputs as numpy arrays keyed `<prefix><name>`: the four
+    tensors, the camera's intrinsics and the GN keywords (JSON)."""
+    arrays = dict(T_init=T_init.cpu().numpy(), pts_w=pts.cpu().numpy(),
+                  uv=uv.cpu().numpy(), mask=mask.cpu().numpy(),
+                  cam=np.asarray(cam, np.float64),
+                  gn=np.asarray(json.dumps(gn)))
+    return {prefix + k: v for k, v in arrays.items()}
+
+
+def save_pose_inputs(path, T_init, pts, uv, mask, cam, gn: dict,
+                     **extra) -> None:
+    """One solve's inputs (`pose_inputs_arrays`) and `extra` arrays as
+    npz."""
+    np.savez_compressed(path, **pose_inputs_arrays(T_init, pts, uv, mask,
+                                                   cam, gn), **extra)
+
+
+def load_pose_inputs(path, device="cuda", prefix: str = ""):
+    """(T_init, pts_w, uv, mask, cam, gn) of a `save_pose_inputs` file, or
+    of the arrays keyed `<prefix><name>` in an open npz."""
+    z = np.load(path) if isinstance(path, (str, Path)) else path
+    ts = [torch.as_tensor(z[prefix + k]).to(device)
+          for k in ("T_init", "pts_w", "uv", "mask")]
+    out = (*ts, Camera.create(*z[prefix + "cam"]),
+           json.loads(str(z[prefix + "gn"])))
+    if z is not path:
+        z.close()
+    return out
+
+
+def pose_gn_golden_cases(device="cuda", data=POSE_DATA):
+    """K4's recorded cases, as (key, (T_init, pts, uv, mask, cam), gn):
+    the problems of POSE_GOLDEN_SEEDED, one without points, and each
+    inputs file in `data`, each at every `iters` of POSE_GOLDEN_ITERS."""
+    def problems():
+        for name, kw in POSE_GOLDEN_SEEDED.items():
+            yield name, pose_gn_problem(device=device, **kw), {}
+        T, *_, cam = pose_gn_problem(n=8, device=device)
+        yield "n0", (T, torch.zeros((0, 3), device=device),
+                     torch.zeros((0, 2), device=device),
+                     torch.zeros(0, dtype=torch.bool, device=device),
+                     cam), {}
+        for path in sorted(Path(data).glob("*.npz")):
+            if path.name != POSE_GOLDEN.name:
+                *inputs, gn = load_pose_inputs(path, device)
+                yield path.stem, tuple(inputs), gn
+
+    for name, inputs, gn in problems():
+        for iters in POSE_GOLDEN_ITERS:
+            yield f"{name}_iters{iters}", inputs, dict(gn, iters=iters)
+
+
+def pose_gn_outputs(T_init, pts, uv, mask, cam, **gn) -> dict:
+    """`solve_pose`'s outputs and iterations as numpy arrays of their bits
+    (floats viewed as int32, the inlier mask packed), keyed by
+    POSE_OUTPUTS."""
+    out, it = pose_solver.solve_pose(T_init, pts, uv, mask, cam,
+                                     with_iters=True, **gn)
+    if T_init.is_cuda:
+        sync_within(f"pose_gn at N = {len(mask)}")
+    as_bits = lambda t: t.contiguous().view(torch.int32).cpu().numpy()  # noqa: E731
+    return dict(pose=as_bits(out.pose),
+                inliers=np.packbits(out.inlier_mask.cpu().numpy()),
+                n_inliers=np.int64(out.n_inliers.item()),
+                final_cost=as_bits(out.final_cost),
+                iterations=np.int64(int(it)))
+
+
+def record_pose_gn_goldens(path, device="cuda", data=POSE_DATA) -> int:
+    """Write every case's `pose_gn_outputs` to `path` (npz, keys
+    `<case>:<output>`); returns the number of cases."""
+    rec = {}
+    for key, inputs, gn in pose_gn_golden_cases(device, data):
+        for name, v in pose_gn_outputs(*inputs, **gn).items():
+            rec[f"{key}:{name}"] = v
+    np.savez_compressed(path, **rec)
+    return len(rec) // len(POSE_OUTPUTS)
+
+
+def check_pose_gn_goldens(path=POSE_GOLDEN, device="cuda",
+                          prefixes=None) -> dict:
+    """K4 against the recorded outputs, bit for bit: pose, inlier mask,
+    n_inliers, final_cost and iterations, on every case (or those whose key
+    starts with one of `prefixes`), one launch each."""
+    pick = lambda key: prefixes is None or key.startswith(  # noqa: E731
+        tuple(prefixes))
+    bad, n = [], 0
+    before = _build.LAUNCHES["pose_gn"]
+    with np.load(path) as ref:
+        n_ref = sum(pick(k) for k in ref.files) // len(POSE_OUTPUTS)
+        for key, inputs, gn in pose_gn_golden_cases(device,
+                                                    Path(path).parent):
+            if not pick(key):
+                continue
+            got = pose_gn_outputs(*inputs, **gn)
+            n += 1
+            diff = [k for k, v in got.items()
+                    if not np.array_equal(v, ref[f"{key}:{k}"])]
+            if diff:
+                bad.append(f"{key} ({', '.join(diff)})")
+    launches = _build.LAUNCHES["pose_gn"] - before
+    check(n == n_ref and n > 0,
+          f"pose_gn goldens: {n} cases, {n_ref} recorded")
+    check(launches == (n if device != "cpu" else 0),
+          f"pose_gn goldens: {launches} launches for {n} calls")
+    check(not bad, f"pose_gn: {len(bad)} of {n} cases differ from the "
+          f"recorded outputs: {'; '.join(bad[:10])}")
+    return dict(cases=n, differing=0, launches=launches)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,14 @@ CUDA kernel `csrc/pose_gn.cu` (K4): one launch a solve, which ends on the
 device at the early exit. A CPU tensor takes `solve_pose_plain`, which
 keeps the early exit as an `active` flag that freezes the pose (the same
 iterates as the while-loop, all `iters` iterations issued); a CUDA tensor
-launches the kernel or raises. The kernel takes any number of points: it
-holds the first 2048 (VOConfig()'s track table) in registers and reads the
-rest from device memory each iteration.
+launches the kernel or raises. The kernel runs on one thread-block cluster
+of 8 blocks that share their partial sums through distributed shared
+memory; each block solves the 6x6 system itself, so all of them take the
+same step and leave the loop together. Its sums follow the fixed order of
+a one-block schedule (the kernel's header), which fixes its bits. It takes
+any number of points, in rounds of 2048 (VOConfig()'s track table): the
+first round's points stay in registers, later rounds' are read from device
+memory each iteration.
 """
 
 from __future__ import annotations
@@ -51,6 +56,26 @@ def _residuals_and_jacobian(T, pts_w, uv, cam: Camera):
     return r, J_proj @ J_point, Z
 
 
+def gn_step(T, pts_w, uv, mask, cam: Camera, *, huber_delta: float = 2.4477,
+            chi2_threshold: float = 5.991, damping: float = 1e-6):
+    """The plain version's step at T: dx [6] of the robust normal
+    equations, zeroed unless finite with norm < 1."""
+    r, J, Z = _residuals_and_jacobian(T, pts_w, uv, cam)
+    chi2 = (r * r).sum(-1)
+    valid = mask & (Z > 1e-3)
+    w_huber = torch.clamp(
+        huber_delta / torch.sqrt(torch.clamp(chi2, min=1e-12)), max=1.0)
+    w_gate = torch.where(chi2 > chi2_threshold, 1e-3, 1.0)
+    w = w_huber * w_gate * valid.to(r.dtype)
+    JW = J * w[:, None, None]
+    eye6 = torch.eye(6, dtype=T.dtype, device=T.device)
+    H = torch.einsum("nik,nil->kl", J, JW) + damping * eye6
+    b = -torch.einsum("nik,ni->k", JW, r)
+    dx = torch.linalg.solve_ex(H, b)[0]
+    ok = torch.isfinite(dx).all() & (torch.linalg.norm(dx) < 1.0)
+    return torch.where(ok, dx, torch.zeros_like(dx))
+
+
 def solve_pose_plain(T_init, pts_w, uv, mask, cam: Camera, *,
                      iters: int = 40, huber_delta: float = 2.4477,
                      chi2_threshold: float = 5.991, damping: float = 1e-6,
@@ -59,26 +84,14 @@ def solve_pose_plain(T_init, pts_w, uv, mask, cam: Camera, *,
     observed at uv [N, 2], valid where mask [N]: the plain version of K4.
     With `with_iters`, also returns the iterations the while-loop would run
     ([] int64: those begun while the pose was not yet frozen)."""
-    eye6 = torch.eye(6, dtype=T_init.dtype, device=T_init.device)
     T = T_init
     active = torch.ones((), dtype=torch.bool, device=T_init.device)
     n_iters = torch.zeros((), dtype=torch.int64, device=T_init.device)
     for _ in range(iters):
         if with_iters:
             n_iters = n_iters + active
-        r, J, Z = _residuals_and_jacobian(T, pts_w, uv, cam)
-        chi2 = (r * r).sum(-1)
-        valid = mask & (Z > 1e-3)
-        w_huber = torch.clamp(
-            huber_delta / torch.sqrt(torch.clamp(chi2, min=1e-12)), max=1.0)
-        w_gate = torch.where(chi2 > chi2_threshold, 1e-3, 1.0)
-        w = w_huber * w_gate * valid.to(r.dtype)
-        JW = J * w[:, None, None]
-        H = torch.einsum("nik,nil->kl", J, JW) + damping * eye6
-        b = -torch.einsum("nik,ni->k", JW, r)
-        dx = torch.linalg.solve_ex(H, b)[0]
-        ok = torch.isfinite(dx).all() & (torch.linalg.norm(dx) < 1.0)
-        dx = torch.where(ok, dx, torch.zeros_like(dx))
+        dx = gn_step(T, pts_w, uv, mask, cam, huber_delta=huber_delta,
+                     chi2_threshold=chi2_threshold, damping=damping)
         T = torch.where(active, lie.se3_exp(dx) @ T, T)
         active = active & (torch.linalg.norm(dx) > 1e-5)
 
@@ -94,6 +107,11 @@ def solve_pose_plain(T_init, pts_w, uv, mask, cam: Camera, *,
     out = PoseSolveResult(pose=T, inlier_mask=inliers,
                           n_inliers=inliers.sum(), final_cost=final_cost)
     return (out, n_iters) if with_iters else out
+
+
+def cluster_size() -> int:
+    """The blocks of K4's thread-block cluster (builds the kernels)."""
+    return _build.library().yavo_pose_gn_cluster_size()
 
 
 def _strides(name: str, t: torch.Tensor, dtype: torch.dtype, shape):
