@@ -62,7 +62,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      before it, ATE_sim3 over the real frames below 0.25; run with
      YA_VO_DUMP_RESET_DIR set (phase 11 (c));
   7. determinism: `solve_window` on phase 5's last window problem twice,
-     bit-identical poses and landmarks; its device and call time;
+     bit-identical poses and landmarks; its device and call time; the
+     window solve's CUDA graphs (`ba_window.SolveGraphs`, which the
+     frontend runs) bit-equal to it, warm-up and replay, and their device
+     and call time;
   8. textured path: the renderer against the float64 tracer at 376x1241 on
      the card (selfcheck's check), its device ms and kernel launches a
      frame; then `create_frontend(VOConfig(), seq.cam)` unmodified over
@@ -147,14 +150,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      costs and reprojections against the 2x2 solve in this process at
      (a)'s tolerances, and ms a GN iteration of both;
  13. the profiling and diagnosis tools: `profile_step` (its fused step
-     bit-equal to the frontend's own dispatch on the same state, its
-     components' values equal to the step's, then its rows: call ms,
-     device ms, cudaLaunchKernel and kernel launches a call),
+     bit-equal to the frontend's own dispatch on the same state and to a
+     replay of the frontend's fresh step graph on it, its components'
+     values equal to the step's, then its rows: call ms, device ms,
+     cudaLaunchKernel, cudaGraphLaunch, kernels on the device and
+     hand-written kernel launches a call, the replay's row after the eager
+     step's, with one graph launch, the five kernels once and a call ms
+     below the eager step's),
      `bench_lk` at 3 levels and 30 iterations (K1's device time within
      LK_TIME_TOL of phase 3's), `profile_bench` on the stamps world
      (per-frame ms and the phases) and `diag_primary` over the first
      DIAG_N frames of phase 8's world (its record and summary); each
-     part's seconds.
+     part's seconds;
+ 14. graphs: the fused step as the frontend's two CUDA graphs (fresh and
+     redo, `tracking/step_graph.py`), which every phase above runs, against
+     the eager step (`step_graphs=False`) in this process: phase 5's frames
+     (VOConfig(), the stamps world) and phase 8's (its first TEXTURED_N
+     frames, rendered before the runs), each side a fresh frontend through
+     the bootstrap (frames 0-1), then the rest pipelined and timed:
+     trajectories bit for bit, resets, relocalizations, keyframes, solves,
+     discards, redone dispatches and every kernel's launches equal, the
+     graphs replayed at every dispatch but the first (the capture's
+     warm-up); frames/s of both; then both again over the first
+     GRAPH_PROFILED_N frames under `torch.profiler`, bit-equal to each
+     other, with cudaLaunchKernel, cudaGraphLaunch, kernels on the device
+     and hand-written launches a frame.
+The launch counts are those the card ran: a kernel captured in a graph
+counts once at every replay (`_build.count_replay`), never at its capture.
 Each of phases 4-6, 8-12 zeroes the launch counts just before its run,
 reads them just after, and fails unless every kernel ran in it; so do
 phase 13's `profile_bench` and `diag_primary` runs (the latter's counts
@@ -179,10 +201,11 @@ import urllib.request
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from ya_vo_tpu_torch import _build, create_frontend
 from ya_vo_tpu_torch import (bench_lk, diag_primary, profile_bench,
-                             profile_step)
+                             profile_slice, profile_step)
 from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.ba import window as ba_window
 from ya_vo_tpu_torch.config import VOConfig, with_option
@@ -190,7 +213,7 @@ from ya_vo_tpu_torch.parallel import dist_ba, scaling_bench
 from ya_vo_tpu_torch.parallel import mesh as mesh_lib
 from ya_vo_tpu_torch.selfcheck import (bits_equal, card_line, check,
                                        device_ms, time_ms)
-from ya_vo_tpu_torch.tracking import pose_solver
+from ya_vo_tpu_torch.tracking import pose_solver, step_graph
 from ya_vo_tpu_torch.tracking.frontend import (detect_kwargs,
                                                photometric_normalize)
 from ya_vo_tpu_torch.utils import synthetic
@@ -398,13 +421,15 @@ def path_launches(name: str, launches: dict = None) -> dict:
 def pose_gn_iterations():
     """Collect the iterations of every pose GN solve made inside: each
     call of `pose_solver.solve_pose` asks for the kernel's iteration count
-    (a device scalar, read by the caller once the run is over)."""
+    (a device scalar, read by the caller once the run is over; a solve in a
+    step graph's capture hands over a copy of its count after every replay,
+    `step_graph.tap`)."""
     counts = []
     solve = pose_solver.solve_pose
 
     def counted(*args, **kw):
         out, n = solve(*args, with_iters=True, **kw)
-        counts.append(n)
+        step_graph.tap(n, counts.append)
         return out
 
     pose_solver.solve_pose = counted
@@ -539,10 +564,20 @@ def check_ba_determinism(fe):
     check(bits_equal(a.poses, b.poses) and bits_equal(a.landmarks,
                                                       b.landmarks),
           "solve_window: two solves of one problem differ")
+    # the window solve's graphs: the first call eager, then replays
+    graphs = ba_window.SolveGraphs(fe.cam, **fe._window_kw)
+    for _ in range(2):
+        g = graphs(prob)
+        check(all(bits_equal(x, y) for x, y in zip(a[:5], g[:5]))
+              and g.n_iters == a.n_iters,
+              "SolveGraphs: the graphs' solve differs from solve_window")
     return dict(bit_identical=True, n_iters=a.n_iters,
                 n_obs=int(a.n_obs), n_landmarks=int(prob.lm_valid.sum()),
                 device_ms=device_ms(solve, reps=3),
-                call_ms=time_ms(solve, reps=3))
+                call_ms=time_ms(solve, reps=3),
+                graphs_bit_equal=True,
+                graphs_device_ms=device_ms(lambda: graphs(prob), reps=3),
+                graphs_call_ms=time_ms(lambda: graphs(prob), reps=3))
 
 
 def run_textured(card) -> dict:
@@ -1182,6 +1217,12 @@ def run_tools(frames, cam, card, lk_device_ms: float) -> dict:
           and bits_equal(kp.uv, own["kp"].uv)
           and bits_equal(desc, own["desc"]),
           "profile_step: the fused step differs from the frontend's")
+    with fe._throwaway_chain():
+        gkp, gdesc, _, grec = profile_step.graph_step(fe, st)
+        check(all(bits_equal(a, b) for a, b in zip(rec, grec))
+              and bits_equal(kp.uv, gkp.uv) and bits_equal(desc, gdesc),
+              "profile_step: the step graph's replay differs from the "
+              "eager fused step")
     diffs = profile_step.compare(x, kp, desc, rec)
     check(not diffs, f"profile_step: components differ from the fused "
                      f"step: {diffs}")
@@ -1191,9 +1232,23 @@ def run_tools(frames, cam, card, lk_device_ms: float) -> dict:
         print("profile_step " + profile_step.format_row(name, row),
               flush=True)
         rows.append(dict(name=name, **row))
-    check(rows[0]["kernel_launches"] == 5,
-          f"profile_step: the fused step launched {rows[0]['kernel_launches']}"
-          f" hand-written kernels a call, not 5 (K2, select, K1, K3, K4)")
+        if name == "fused step":
+            with fe._throwaway_chain():
+                row = profile_step.measure(
+                    lambda: profile_step.graph_step(fe, st), "cuda",
+                    TOOL_REPS)
+            print("profile_step " + profile_step.format_row(
+                profile_step.GRAPH_ROW, row), flush=True)
+            rows.append(dict(name=profile_step.GRAPH_ROW, **row))
+    eager, replay = rows[0], rows[1]
+    check(eager["kernel_launches"] == replay["kernel_launches"] == 5,
+          f"profile_step: the fused step launched {eager['kernel_launches']}"
+          f" and its replay {replay['kernel_launches']} hand-written "
+          f"kernels a call, not 5 (K2, select, K1, K3, K4)")
+    check(replay["cuda_graph_launch"] == 1
+          and replay["call_ms"] < eager["call_ms"],
+          f"profile_step: the replay's row {replay} against the eager "
+          f"step's {eager}")
     out["profile_step"] = dict(rows=rows, seconds=time.perf_counter() - t0)
     del fe, st, x
     # bench_lk at 3 levels, 30 iterations against phase 3's K1
@@ -1251,6 +1306,89 @@ def run_tools(frames, cam, card, lk_device_ms: float) -> dict:
     del fe
     for v in out.values():
         v["card"] = card
+    return out
+
+
+def _graph_side(frames, cam, step_graphs: bool, profiled: bool) -> dict:
+    """Phase 14: VOConfig() over `frames`, with the step graphs or the
+    eager step: the bootstrap, then the rest pipelined and timed (under
+    `torch.profiler` when `profiled`: its counts a frame)."""
+    _build.reset_launches()
+    fe = create_frontend(VOConfig(), cam, device="cuda",
+                         step_graphs=step_graphs)
+    fe.run(frames[:2])                      # INIT + two-view bootstrap
+    torch.cuda.synchronize()
+    n = len(frames) - 2
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profiled else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        traj = fe.run(frames[2:], pipelined=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    out = dict(traj=traj, resets=fe.n_resets,
+               relocalizations=fe.n_relocalizations,
+               keyframes=sum(r.is_keyframe for r in fe.results),
+               ba_solves=fe.n_ba_runs, ba_discarded=fe.n_ba_discarded,
+               redone_dispatches=fe.n_redone, frames_per_s=n / dt,
+               launches=dict(_build.LAUNCHES),
+               graph_replays=_build.REPLAYS["graphs"])
+    if profiled:
+        evs = prof.events()
+        out["per_frame"] = dict(
+            cudaLaunchKernel=sum(e.name == "cudaLaunchKernel"
+                                 for e in evs) / n,
+            cudaGraphLaunch=sum(e.name == "cudaGraphLaunch" for e in evs) / n,
+            device_kernels=profile_slice.device_kernels(evs) / n,
+            kernel_launches=_per_frame(out["launches"], n))
+    return out
+
+
+# the readings phase 14 holds equal between the eager step and the graphs;
+# the frames of its profiled runs
+GRAPH_EQUAL = ("resets", "relocalizations", "keyframes", "ba_solves",
+               "ba_discarded", "redone_dispatches", "launches")
+GRAPH_PROFILED_N = 32
+
+
+def run_graphs(frames, cam, card) -> dict:
+    """Phase 14 (module docstring): {world: readings}."""
+    seq = TexturedSequence(**TEXTURED, device="cuda")
+    worlds = {"stamps": (list(frames), cam),
+              "textured": ([seq.frame(f) for f in range(TEXTURED_N)],
+                           seq.cam)}
+    out = {}
+    for world, (fr, c) in worlds.items():
+        t0 = time.perf_counter()
+        runs = {}
+        for profiled in (False, True):
+            for name in ("eager", "graphs"):
+                runs[name + ("_profiled" if profiled else "")] = _graph_side(
+                    fr[:GRAPH_PROFILED_N] if profiled else fr, c,
+                    name == "graphs", profiled)
+        for key, side in runs.items():
+            ref = runs["eager_profiled" if key.endswith("profiled")
+                       else "eager"]
+            check(bits_equal(torch.as_tensor(side["traj"]),
+                             torch.as_tensor(ref["traj"]))
+                  and all(side[k] == ref[k] for k in GRAPH_EQUAL),
+                  f"graphs {world}: the {key} run differs from the eager "
+                  f"step's: " + json.dumps(
+                      {k: (side[k], ref[k]) for k in GRAPH_EQUAL}))
+            want = (side["launches"]["lk_level"] - 1
+                    if key.startswith("graphs") else 0)
+            check(side["graph_replays"] == want,
+                  f"graphs {world}: the {key} run made "
+                  f"{side['graph_replays']} replays, not {want}")
+        out[world] = dict(
+            frames=len(fr), bit_equal=True,
+            frames_per_s={k: runs[k]["frames_per_s"]
+                          for k in ("eager", "graphs")},
+            per_frame={k: runs[k + "_profiled"]["per_frame"]
+                       for k in ("eager", "graphs")},
+            **{k: runs["eager"][k] for k in GRAPH_EQUAL},
+            graph_replays=runs["graphs"]["graph_replays"],
+            seconds=time.perf_counter() - t0, card=card)
     return out
 
 
@@ -1472,6 +1610,11 @@ def main() -> int:
     for name, out in tools.items():
         print(f"tools {name}: " + json.dumps(out), flush=True)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    # 14. the step graphs against the eager step
+    t0 = time.perf_counter()
+    for world, out in run_graphs(frames, cam, card).items():
+        print(f"graphs {world}: " + json.dumps(out), flush=True)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"ba_off": launches, "production": prod["launches"],
                "reset": reset["launches"], "textured": textured["launches"],
                "cli_synthetic": cli["synthetic"]["launches"],

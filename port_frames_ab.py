@@ -9,6 +9,7 @@
                               [--warm 8 ...] [--world-seed S ...]
     python3 port_frames_ab.py --orders [TREE] [--order-seed 0 1 ...]
                               [--solver plain kernel]
+    python3 port_frames_ab.py --graphs [TREE] [--pairs 2]
 
 Each side runs in a process of its own from its own checkout (so each
 imports its own `ya_vo_tpu_torch` and builds its own kernels), on one CUDA
@@ -45,6 +46,16 @@ seeded permutation), which changes only the order of the normal
 equations' sums. Prints each run's ATE_sim3, resets, solves and frames/s,
 so the spread of the trajectory under float-level perturbations of the
 pose solve shows beside the two solvers' difference.
+
+With `--graphs`, the two sides are the fused step of one checkout (TREE,
+default the current directory) as its CUDA graphs and as the eager step
+(`step_graphs=False`), both in one process, which renders the bench's
+world once: the bench's primary (`bench.primary_rep`: 8 warm frames and
+`precompile()`, then the timed pipelined run of the other 402 frames,
+rendered inside the window), in turns, eager first in even pairs (ABBA).
+Prints each run's frames/s, resets, redone dispatches, solves and
+ATE_sim3 (bit-equal trajectories on both sides are checked), then the
+medians, quartiles and pairs won.
 
 With `--apply-mode`, the two sides are the window BA's apply modes of one
 checkout (TREE, default the current directory), "push" and "device", on
@@ -179,6 +190,35 @@ print(json.dumps(dict(
 """
 
 
+GRAPHS_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from ya_vo_tpu_torch import bench
+from ya_vo_tpu_torch.utils.scene import TexturedSequence
+from ya_vo_tpu_torch.viz import evaluation
+dev = torch.device("cuda")
+seq = TexturedSequence(n_frames=bench.N_FRAMES, seed=5, device=dev)
+gt_cw = np.linalg.inv(seq.poses[:bench.N_FRAMES])
+ref = None
+for i in range(int(sys.argv[1])):
+    for side in (("eager", "graphs") if i % 2 == 0 else ("graphs", "eager")):
+        fe, fps = bench.primary_rep(seq, dev, step_graphs=side == "graphs")
+        traj = np.stack(fe.trajectory)
+        if ref is None:
+            ref = traj
+        print(json.dumps(dict(
+            pair=i, side=side, frames_per_s=fps, resets=fe.n_resets,
+            redone=fe.n_redone, ba_solves=fe.n_ba_runs,
+            ate_sim3=evaluation.ate_rmse(traj, gt_cw, with_scale=True),
+            bit_equal=bool(np.array_equal(traj.view(np.int32),
+                                          ref.view(np.int32))),
+            card=cs.card_line())), flush=True)
+        del fe
+"""
+
+
 APPLY_CHILD = r"""
 import json, sys, time
 import numpy as np
@@ -268,6 +308,9 @@ def main() -> int:
                     help="with --apply-mode: the textured world's seeds, "
                     "each alternated in turn (default chip_smoke.py "
                     "phase 8's)")
+    ap.add_argument("--graphs", action="store_true",
+                    help="the bench's primary with the step graphs "
+                    "against the eager step, in one process")
     ap.add_argument("--orders", action="store_true",
                     help="the bench's ATE_sim3 under permuted point orders "
                     "of each pose solver, in one checkout")
@@ -285,6 +328,24 @@ def main() -> int:
                                 order=(solver, seed))
                 print(json.dumps(rec), flush=True)
         return 0
+    if args.graphs:
+        out = subprocess.run(
+            [sys.executable, "-c", GRAPHS_CHILD, str(args.pairs)],
+            cwd=os.path.abspath(args.parent), capture_output=True, text=True,
+            timeout=1800)
+        if out.returncode != 0:
+            raise RuntimeError(out.stderr[-2000:])
+        recs = [json.loads(x) for x in out.stdout.split("\n") if x]
+        got = {side: [r["frames_per_s"] for r in recs if r["side"] == side]
+               for side in ("eager", "graphs")}
+        wins = {side: sum(
+            max((r for r in recs if r["pair"] == i),
+                key=lambda r: r["frames_per_s"])["side"] == side
+            for i in range(args.pairs)) for side in got}
+        for r in recs:
+            print(json.dumps(r), flush=True)
+        summarize(got, wins, args.pairs)
+        return 0 if all(r["bit_equal"] for r in recs) else 1
     if args.apply_mode:
         return apply_modes(os.path.abspath(args.parent), args.pairs,
                            args.runs, args.warm, args.world_seed)

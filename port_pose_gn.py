@@ -19,8 +19,9 @@ checkout's).
 collect: a real step's solve inputs (`selfcheck.textured_solve_inputs()`)
 to DIR/step.npz, then the bench's call as `port_frames_ab.py --bench`
 runs it (`bench.run_bench`, one rep of the 410-frame textured world at
-VOConfig(), a 1-step probe and a 7-frame stamps secondary) with the inputs
-of every `solve_pose` call kept. Prints the histogram of the iterations K4
+VOConfig(), a 1-step probe and a 7-frame stamps secondary; the eager
+step, as a step graph's replay calls no Python) with the inputs of every
+`solve_pose` call kept. Prints the histogram of the iterations K4
 ran, and writes up to --max of the solves that ran to the 40-iteration
 cap, spread over the call, to DIR/capped_s<solve>.npz
 (`selfcheck.save_pose_inputs`; <solve> is the solve's index in the call).
@@ -49,11 +50,17 @@ events of `pose_gn_kernel`) and call ms (CUDA events, host issue
 included) at the real step (step.npz) and at the first capped input (40
 iterations); then the medians.
 
-frames: the bench's call (`bench.run_bench`: one rep of the 410-frame
-textured world at VOConfig(), a 1-step probe, a 7-frame stamps secondary)
-once each --csrc-list K4 in turns, in this one process, for --pairs
-rounds: frames/s, resets, solves and ATE_sim3 a run, the medians, and the
-rounds each won. Unlike `port_frames_ab.py --bench`, whose sides are
+frames: the bench's primary (`bench.primary_rep`: a fresh frontend through
+8 warm frames and `precompile()`, then the timed pipelined run of the
+other 402 frames of the 410-frame textured world at VOConfig(), rendered
+inside the window) once each --csrc-list K4 in turns, in this one
+process, for --pairs rounds, the list's order in even rounds and reversed
+in odd ones (with two builds and an even --pairs, ABBA): frames/s, resets,
+solves, redone dispatches, ATE_sim3, K4's launches and the step graphs'
+replays a run; then each build's medians, overall and at each position in
+its round, and the rounds each won. Each frontend captures its step graphs
+with the K4 loaded when it starts, so every run's K4 launches from a
+graph of its own. Unlike `port_frames_ab.py --bench`, whose sides are
 processes of their own, the K4 builds share one process and its state, so
 what differs between them is the kernel alone. --preload DIR first runs
 one solve of the real step with the K4 built from DIR.
@@ -80,6 +87,8 @@ from ya_vo_tpu_torch import _build, bench
 from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.core import lie
 from ya_vo_tpu_torch.tracking import pose_solver
+from ya_vo_tpu_torch.utils.scene import TexturedSequence
+from ya_vo_tpu_torch.viz import evaluation
 
 
 def collect(out: Path, n_max: int, all_out: Path = None) -> dict:
@@ -98,7 +107,7 @@ def collect(out: Path, n_max: int, all_out: Path = None) -> dict:
     try:
         rec = bench.run_bench(reps=1, probe_steps=1,
                               stamps_frames=bench.STAMPS_WARM + 1,
-                              selfcheck=lambda: "skipped")
+                              selfcheck=lambda: "skipped", step_graphs=False)
     finally:
         pose_solver.solve_pose = solve
     capped = [i for i, (n, _, _, kw) in enumerate(solves)
@@ -196,10 +205,11 @@ def time_kernels(csrcs, data: Path, pairs: int) -> list:
 
 
 def frames_two(csrcs, pairs: int, preload=None, data=sc.POSE_DATA) -> list:
-    """The bench's call (`bench.run_bench` as `port_frames_ab.py --bench`
-    runs it) once a K4 build in turns, all in this process: frames/s,
-    resets, solves and ATE_sim3 a run. With `preload`, first one solve of
-    the real step with the K4 built from it."""
+    """The bench's primary (`bench.primary_rep`) once a K4 build in turns,
+    all in this process: frames/s, resets, solves, redone dispatches,
+    ATE_sim3, K4's launches and graph replays a run, with the run's
+    position in its round. With `preload`, first one solve of the real
+    step with the K4 built from it."""
     libs = {str(c): _build.load_library(_build.build(Path(c)))
             for c in csrcs}
     if preload is not None:
@@ -207,19 +217,26 @@ def frames_two(csrcs, pairs: int, preload=None, data=sc.POSE_DATA) -> list:
         *args, gn = sc.load_pose_inputs(data / "step.npz")
         pose_solver.solve_pose(*args, **gn)
         torch.cuda.synchronize()
+    dev = torch.device("cuda")
+    seq = TexturedSequence(n_frames=bench.N_FRAMES, seed=5, device=dev)
+    gt_cw = np.linalg.inv(seq.poses[:bench.N_FRAMES])
     rows = []
     for i in range(pairs):
-        for name in (list(libs) if i % 2 == 0 else list(libs)[::-1]):
+        order = list(libs) if i % 2 == 0 else list(libs)[::-1]
+        for pos, name in enumerate(order):
             _build._lib = libs[name]
-            rec = bench.run_bench(reps=1, probe_steps=1,
-                                  stamps_frames=bench.STAMPS_WARM + 1,
-                                  selfcheck=lambda: "skipped")
-            rows.append(dict(pair=i, kernel=name,
-                             frames_per_s=rec["fps_reps"][0],
-                             resets=rec["resets_reps"][0],
-                             ba_solves=rec["ba_runs_reps"][0],
-                             ate_sim3=rec["ate_reps"][0]))
+            _build.reset_launches()
+            fe, fps = bench.primary_rep(seq, dev)
+            rows.append(dict(
+                pair=i, position=pos, kernel=name, frames_per_s=fps,
+                resets=fe.n_resets, ba_solves=fe.n_ba_runs,
+                redone=fe.n_redone,
+                ate_sim3=float(evaluation.ate_rmse(
+                    np.stack(fe.trajectory), gt_cw, with_scale=True)),
+                pose_gn_launches=_build.LAUNCHES["pose_gn"],
+                graph_replays=_build.REPLAYS["graphs"]))
             print(json.dumps(rows[-1]), flush=True)
+            del fe
     return rows
 
 
@@ -304,9 +321,13 @@ def main() -> int:
         for name in map(str, csrcs):
             fps = [x["frames_per_s"] for x in rows if x["kernel"] == name]
             q1, med, q3 = np.percentile(fps, [25, 50, 75])
+            by_pos = {p: float(np.median(
+                [x["frames_per_s"] for x in rows
+                 if x["kernel"] == name and x["position"] == p]))
+                for p in sorted({x["position"] for x in rows})}
             print(json.dumps(dict(kernel=name, frames_per_s_median=med,
                                   quartiles=[q1, q3], runs=len(fps),
-                                  card=card)))
+                                  median_by_position=by_pos, card=card)))
         wins = [max((x for x in rows if x["pair"] == i),
                     key=lambda x: x["frames_per_s"])["kernel"]
                 for i in range(args.pairs)]

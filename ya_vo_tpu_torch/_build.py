@@ -11,16 +11,23 @@ what lets the FAST score map match to the last bit.
 
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the kernels.
+A wrapper called while a CUDA graph is being captured launches nothing: its
+launch is recorded in the capture's own counts (`capturing`), and every
+replay of the graph adds them to `LAUNCHES` (`count_replay`), so the counts
+read what the card ran. `REPLAYS` counts the replays themselves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -30,8 +37,18 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
 KERNELS = ("fast_score", "fast_select", "hamming", "lk_level", "pose_gn")
+# each wrapper's kernel function, as the profiler names its device events
+DEVICE_NAMES = {"fast_score": "fast_score_kernel",
+                "fast_select": "fast_select_kernel",
+                "hamming": "hamming_kernel", "lk_level": "lk_pyramid_kernel",
+                "pose_gn": "pose_gn_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
+REPLAYS = {"graphs": 0}
+# the launch counts of the capture under way in this thread, or None; one
+# capture at a time in the process (PyTorch's rule for graph captures)
+_capture = threading.local()
+_capture_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,6 +93,34 @@ _lib = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    REPLAYS["graphs"] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Inside (a graph's capture in this thread), `launch` records each
+    launch in the yielded counts instead of `LAUNCHES`. Captures in other
+    threads wait. The garbage collector stays off until the capture ends:
+    a collection inside it can free a dead frontend's graphs, whose memory
+    pools go back with `cudaFree`, which invalidates a capture."""
+    counts = {name: 0 for name in KERNELS}
+    with _capture_lock:
+        enabled = gc.isenabled()
+        gc.disable()
+        _capture.counts = counts
+        try:
+            yield counts
+        finally:
+            _capture.counts = None
+            if enabled:
+                gc.enable()
+
+
+def count_replay(counts: dict) -> None:
+    """One replay of a graph whose capture recorded `counts`."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+    REPLAYS["graphs"] += 1
 
 
 def library_path(csrc: Path = CSRC) -> Path:
@@ -152,12 +197,13 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call `yavo_<name>` on the current stream, raise on a CUDA error, and
-    count the launch."""
+    count the launch (in the capture's counts during a capture)."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), f"yavo_{name}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    LAUNCHES[name] += 1
+    counts = getattr(_capture, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += 1
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape,

@@ -22,15 +22,25 @@ Two choices differ from the JAX module's form, not its results:
 
 The three-operand contractions of the reduced system are grouped as
 (Wpl Hll^-1) first, then one product over the landmark axis.
+
+`SolveGraphs` runs `solve_window` on the card as CUDA graphs: the solve's
+start, one GN iteration and its end, each captured once for each landmark
+layout width M (the most observations of one landmark, at most the
+window's keyframes) and replayed, with the early exit still read on the
+host after each iteration; bit-equal to `solve_window`, with the host
+issuing one replay an iteration where the eager solve issues each of the
+iteration's kernels.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ya_vo_tpu_torch import _build
 from ya_vo_tpu_torch.core import lie
 from ya_vo_tpu_torch.core.camera import Camera
 
@@ -216,18 +226,23 @@ def _gauge_fix(S, b_red, n_fixed: int = 1, pose_weight: float = 1e8):
     return S + torch.einsum("w,kl,wv->wkvl", pin, eye6, eyeW), b_red
 
 
-def solve_window(prob: BAProblem, cam: Camera, *, iters: int = 8,
-                 huber_delta: float = 2.4477, damping: float = 1e-4,
-                 n_fixed_poses: int = 1, rel_tol: float = 1e-3,
-                 pose_prior_weight: float = 0.0) -> BAResult:
-    """Run up to `iters` damped GN steps on the window problem; stop once
-    an iteration's relative cost decrease is at or below `rel_tol`.
-    `pose_prior_weight` w adds the trust region w/2 ||log(T T_init^-1)||^2
-    on every pose (0 disables). Runs where the problem's tensors live; on
-    the card, TF32 must be off (the frontend turns it off)."""
+def _solve_start(prob: BAProblem, cam: Camera, huber_delta: float,
+                 seg: Segments):
+    """A solve's first values: (initial cost, observations used, the
+    initial poses' inverses for the prior)."""
+    *_, cost0, valid0 = _obs_terms(prob.poses, prob.landmarks, prob, cam,
+                                   huber_delta, seg)
+    return cost0, valid0.sum(), torch.linalg.inv_ex(prob.poses)[0]
+
+
+def _gn_iteration(poses, landmarks, prob: BAProblem, cam: Camera,
+                  seg: Segments, init_inv, *, huber_delta: float,
+                  damping: float, n_fixed_poses: int,
+                  pose_prior_weight: float):
+    """One damped GN step with its per-landmark and global acceptance:
+    (poses, landmarks, relative cost improvement; 0 when rejected)."""
     L = prob.landmarks.shape[0]
     W = prob.poses.shape[0]
-    seg = segments(prob.obs_lm, L)
 
     def lm_cost_eval(poses, landmarks):
         """Per-landmark robust cost [L] (they partition the total)."""
@@ -238,11 +253,6 @@ def solve_window(prob: BAProblem, cam: Camera, *, iters: int = 8,
         hc = torch.where(nq <= huber_delta, 0.5 * chi2q,
                          huber_delta * (nq - 0.5 * huber_delta))
         return _segment_sum(torch.where(valid_q, hc, 0.0), seg)
-
-    *_, cost0, valid0 = _obs_terms(prob.poses, prob.landmarks, prob, cam,
-                                   huber_delta, seg)
-    n_obs = valid0.sum()
-    init_inv = torch.linalg.inv_ex(prob.poses)[0]           # [W, 4, 4]
 
     def prior_dev(poses):
         return lie.se3_log(poses @ init_inv)                 # [W, 6]
@@ -255,46 +265,64 @@ def solve_window(prob: BAProblem, cam: Camera, *, iters: int = 8,
 
     eye_blk = torch.eye(W * 6, dtype=prob.poses.dtype,
                         device=prob.poses.device).reshape(W, 6, W, 6)
+    r, Jp, Jl, w, cost_prev, _ = _obs_terms(poses, landmarks, prob, cam,
+                                            huber_delta, seg)
+    S, b_red, Hll_inv, bl, Wpl = _reduced_system(r, Jp, Jl, w, seg, damping)
+    S, b_red = _gauge_fix(S, b_red, n_fixed=n_fixed_poses)
+    S = S + damping * eye_blk
+    if pose_prior_weight > 0:
+        S = S + pose_prior_weight * eye_blk
+        b_red = b_red - pose_prior_weight * prior_dev(poses)
+        cost_prev = cost_prev + prior_cost(poses)
+
+    dxp = torch.linalg.solve_ex(S.reshape(W * 6, W * 6),
+                                b_red.reshape(-1))[0].reshape(W, 6)
+    ok = torch.isfinite(dxp).all()
+    dxp = torch.where(ok, dxp, 0.0)
+    dxp[:n_fixed_poses] = 0.0                                # hard gauge
+
+    # landmark back-substitution
+    rhs = bl - (Wpl.reshape(L, W * 6, 3).transpose(1, 2)
+                @ dxp.reshape(W * 6))
+    dxl = (Hll_inv @ rhs[..., None])[..., 0]
+    dxl = torch.where(ok & prob.lm_valid[:, None], dxl, 0.0)
+    dxl = torch.clamp(dxl, -5.0, 5.0)
+
+    new_poses = lie.se3_exp(dxp) @ poses
+    cand = landmarks + dxl
+    # per-landmark acceptance, then the global one for the pose step
+    lmA = lm_cost_eval(new_poses, cand)
+    lmB = lm_cost_eval(new_poses, landmarks)
+    new_landmarks = torch.where((lmA <= lmB)[:, None], cand, landmarks)
+    mixed_cost = torch.minimum(lmA, lmB).sum() + prior_cost(new_poses)
+    accept = mixed_cost < cost_prev
+    poses = torch.where(accept, new_poses, poses)
+    landmarks = torch.where(accept, new_landmarks, landmarks)
+    improvement = torch.where(
+        accept, (cost_prev - mixed_cost)
+        / torch.clamp(cost_prev, min=1e-12), 0.0)
+    return poses, landmarks, improvement
+
+
+def solve_window(prob: BAProblem, cam: Camera, *, iters: int = 8,
+                 huber_delta: float = 2.4477, damping: float = 1e-4,
+                 n_fixed_poses: int = 1, rel_tol: float = 1e-3,
+                 pose_prior_weight: float = 0.0) -> BAResult:
+    """Run up to `iters` damped GN steps on the window problem; stop once
+    an iteration's relative cost decrease is at or below `rel_tol`.
+    `pose_prior_weight` w adds the trust region w/2 ||log(T T_init^-1)||^2
+    on every pose (0 disables). Runs where the problem's tensors live; on
+    the card, TF32 must be off (the frontend turns it off)."""
+    seg = segments(prob.obs_lm, prob.landmarks.shape[0])
+    cost0, n_obs, init_inv = _solve_start(prob, cam, huber_delta, seg)
+    kw = dict(huber_delta=huber_delta, damping=damping,
+              n_fixed_poses=n_fixed_poses,
+              pose_prior_weight=pose_prior_weight)
     poses, landmarks = prob.poses, prob.landmarks
     n_iters = 0
     while n_iters < iters:
-        r, Jp, Jl, w, cost_prev, _ = _obs_terms(poses, landmarks, prob, cam,
-                                                huber_delta, seg)
-        S, b_red, Hll_inv, bl, Wpl = _reduced_system(r, Jp, Jl, w, seg,
-                                                     damping)
-        S, b_red = _gauge_fix(S, b_red, n_fixed=n_fixed_poses)
-        S = S + damping * eye_blk
-        if pose_prior_weight > 0:
-            S = S + pose_prior_weight * eye_blk
-            b_red = b_red - pose_prior_weight * prior_dev(poses)
-            cost_prev = cost_prev + prior_cost(poses)
-
-        dxp = torch.linalg.solve_ex(S.reshape(W * 6, W * 6),
-                                    b_red.reshape(-1))[0].reshape(W, 6)
-        ok = torch.isfinite(dxp).all()
-        dxp = torch.where(ok, dxp, 0.0)
-        dxp[:n_fixed_poses] = 0.0                            # hard gauge
-
-        # landmark back-substitution
-        rhs = bl - (Wpl.reshape(L, W * 6, 3).transpose(1, 2)
-                    @ dxp.reshape(W * 6))
-        dxl = (Hll_inv @ rhs[..., None])[..., 0]
-        dxl = torch.where(ok & prob.lm_valid[:, None], dxl, 0.0)
-        dxl = torch.clamp(dxl, -5.0, 5.0)
-
-        new_poses = lie.se3_exp(dxp) @ poses
-        cand = landmarks + dxl
-        # per-landmark acceptance, then the global one for the pose step
-        lmA = lm_cost_eval(new_poses, cand)
-        lmB = lm_cost_eval(new_poses, landmarks)
-        new_landmarks = torch.where((lmA <= lmB)[:, None], cand, landmarks)
-        mixed_cost = torch.minimum(lmA, lmB).sum() + prior_cost(new_poses)
-        accept = mixed_cost < cost_prev
-        poses = torch.where(accept, new_poses, poses)
-        landmarks = torch.where(accept, new_landmarks, landmarks)
-        improvement = torch.where(
-            accept, (cost_prev - mixed_cost)
-            / torch.clamp(cost_prev, min=1e-12), 0.0)
+        poses, landmarks, improvement = _gn_iteration(
+            poses, landmarks, prob, cam, seg, init_inv, **kw)
         n_iters += 1
         if not bool(improvement > rel_tol):
             break
@@ -302,3 +330,114 @@ def solve_window(prob: BAProblem, cam: Camera, *, iters: int = 8,
     *_, cost1, _ = _obs_terms(poses, landmarks, prob, cam, huber_delta, seg)
     return BAResult(poses=poses, landmarks=landmarks, cost_initial=cost0,
                     cost_final=cost1, n_obs=n_obs, n_iters=n_iters)
+
+
+class _SolveGraph:
+    """The three graphs of one layout width and their static tensors."""
+
+    def __init__(self, prob: BAProblem, seg: Segments):
+        self.prob = BAProblem(*(torch.empty_like(t) for t in prob))
+        self.seg = Segments(*(torch.empty_like(t) for t in seg))
+        self.poses = torch.empty_like(prob.poses)
+        self.landmarks = torch.empty_like(prob.landmarks)
+        self.graphs = {}
+
+
+class SolveGraphs:
+    """`solve_window` with fixed settings, on the card, as CUDA graphs.
+
+    A call lays the problem out (`segments`, eager: its one host read gives
+    M), copies the problem and the layout into the static buffers of the
+    graphs of its shapes and M, replays the start, then one iteration at a time with
+    `solve_window`'s exit read on the host, then the end; the result is
+    copied out of the buffers. The first call at given shapes and M runs
+    `solve_window` eagerly (the warm-up) and then captures their graphs on a
+    side stream (`capture_error_mode="thread_local"`: the tracking thread
+    goes on meanwhile). Calls are serialised: the frontend's backend worker
+    and its own thread may both solve."""
+
+    def __init__(self, cam: Camera, *, iters: int = 8,
+                 huber_delta: float = 2.4477, damping: float = 1e-4,
+                 n_fixed_poses: int = 1, rel_tol: float = 1e-3,
+                 pose_prior_weight: float = 0.0):
+        self.cam = cam
+        self.iters, self.rel_tol = iters, rel_tol
+        self.kw = dict(huber_delta=huber_delta, damping=damping,
+                       n_fixed_poses=n_fixed_poses,
+                       pose_prior_weight=pose_prior_weight)
+        self._graphs = {}
+        self._lock = threading.Lock()
+        self._stream = None
+        self._done = None        # the last call's end, on its stream
+
+    def __call__(self, prob: BAProblem) -> BAResult:
+        if prob.poses.device.type != "cuda":
+            raise ValueError("SolveGraphs runs on the card; call "
+                             "solve_window on the CPU")
+        with self._lock:
+            if self._done is not None:
+                # the buffers are free once the last call's copies are out
+                torch.cuda.current_stream().wait_event(self._done)
+            seg = segments(prob.obs_lm, prob.landmarks.shape[0])
+            key = tuple(t.shape for t in (*prob, *seg))
+            g = self._graphs.get(key)
+            if g is None:
+                res = solve_window(prob, self.cam, iters=self.iters,
+                                   rel_tol=self.rel_tol, **self.kw)
+                self._graphs[key] = self._capture(prob, seg)
+                return res
+            return self._replay(g, prob, seg)
+
+    def _capture(self, prob: BAProblem, seg: Segments) -> _SolveGraph:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(prob.poses.device)
+        g = _SolveGraph(prob, seg)
+        hd = self.kw["huber_delta"]
+
+        def start():
+            g.cost0, g.n_obs, g.init_inv = _solve_start(g.prob, self.cam,
+                                                        hd, g.seg)
+            g.poses.copy_(g.prob.poses)
+            g.landmarks.copy_(g.prob.landmarks)
+
+        def iteration():
+            poses, lms, improvement = _gn_iteration(
+                g.poses, g.landmarks, g.prob, self.cam, g.seg, g.init_inv,
+                **self.kw)
+            g.poses.copy_(poses)
+            g.landmarks.copy_(lms)
+            g.go_on = improvement > self.rel_tol
+
+        def end():
+            g.cost1 = _obs_terms(g.poses, g.landmarks, g.prob, self.cam, hd,
+                                 g.seg)[4]
+
+        for name, body in (("start", start), ("iteration", iteration),
+                           ("end", end)):
+            graph = torch.cuda.CUDAGraph()
+            with _build.capturing():
+                with torch.cuda.graph(graph, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    body()
+            g.graphs[name] = graph
+        return g
+
+    def _replay(self, g: _SolveGraph, prob: BAProblem,
+                seg: Segments) -> BAResult:
+        for d, s in zip((*g.prob, *g.seg), (*prob, *seg)):
+            d.copy_(s)
+        g.graphs["start"].replay()
+        n_iters = 0
+        while n_iters < self.iters:
+            g.graphs["iteration"].replay()
+            n_iters += 1
+            if not bool(g.go_on):
+                break
+        g.graphs["end"].replay()
+        out = BAResult(poses=g.poses.clone(), landmarks=g.landmarks.clone(),
+                       cost_initial=g.cost0.clone(),
+                       cost_final=g.cost1.clone(), n_obs=g.n_obs.clone(),
+                       n_iters=n_iters)
+        self._done = torch.cuda.Event()
+        self._done.record()
+        return out

@@ -19,7 +19,8 @@ unmodified; per rep a fresh frontend takes WARM=8 frames through
 inside the window and ends in a synchronize. The headline is the median of
 the reps' frames/s, min and max beside it. Also: the render's ms a frame
 over 12 frames, the fused step's issue rate after rep 0
-(`device_throughput_probe`), `global_refine` for `ate_refined_m`, and the
+(`device_throughput_probe`; its graph replays and kernel launches a step
+are logged), `global_refine` for `ate_refined_m`, and the
 kernel selfcheck (`python -m ya_vo_tpu_torch.selfcheck`) in a subprocess
 with a timeout and one retry; its lines go to stderr.
 
@@ -63,6 +64,9 @@ from ya_vo_tpu_torch.viz import evaluation
 REPO = Path(__file__).resolve().parent.parent
 N_FRAMES, WARM, REPS = 410, 8, 3
 STAMPS_WARM = 6
+# the throughput probe's keys in the JSON line (`bench.py`'s); its graph replays
+# and kernel launches a step go to the log
+PROBE_KEYS = ("device_step_ms", "fps_device", "n_steps")
 _T0 = time.perf_counter()
 
 
@@ -148,18 +152,38 @@ def stamps_secondary(device: torch.device, n_frames: int, height: int,
             "stamps_ate_m": round(float(ate), 4)}
 
 
+def primary_rep(seq, device, n_frames: int = N_FRAMES,
+                step_graphs: bool = True):
+    """One rep of the primary on `seq`: a fresh frontend at `VOConfig()`
+    through WARM frames and `precompile()`, then the timed pipelined run
+    of frames WARM..n_frames - 1, rendered inside the window. Returns (the
+    frontend, frames/s). `step_graphs=False`: the eager step."""
+    cfg = VOConfig()   # UNMODIFIED production defaults: reference gates
+    fe = create_frontend(cfg, seq.cam, device=device,
+                         step_graphs=step_graphs)
+    for f in range(WARM):
+        fe.process(seq.frame(f))
+    fe.precompile()
+    _sync(device)
+    t0 = time.perf_counter()
+    fe.run((seq.frame(f) for f in range(WARM, n_frames)), pipelined=True)
+    _sync(device)
+    return fe, (n_frames - WARM) / (time.perf_counter() - t0)
+
+
 def run_bench(n_frames: int = N_FRAMES, reps: int = REPS, height: int = 376,
               width: int = 1241, cam=None, device="cuda",
               tex_size: int = 2048, probe_steps: int = 200,
-              stamps_frames: int = 40, selfcheck=run_selfcheck) -> dict:
+              stamps_frames: int = 40, selfcheck=run_selfcheck,
+              step_graphs: bool = True) -> dict:
     """The primary run and its extras; returns the JSON line's dict.
     `cam` defaults to the KITTI camera; the stamps secondary renders
     `stamps_frames` frames at the same size; `selfcheck` is called with no
-    arguments after the runs and returns the selfcheck's status."""
+    arguments after the runs and returns the selfcheck's status;
+    `step_graphs=False` runs the primary's reps with the eager step."""
     device = torch.device(device)
     seq = TexturedSequence(n_frames=n_frames, height=height, width=width,
                            seed=5, cam=cam, tex_size=tex_size, device=device)
-    cfg = VOConfig()   # UNMODIFIED production defaults: reference gates
     gt_cw = np.linalg.inv(seq.poses[:n_frames])
 
     # steady-state render time: 12 frames, one synchronize
@@ -174,24 +198,16 @@ def run_bench(n_frames: int = N_FRAMES, reps: int = REPS, height: int = 376,
     probe = {}
     for rep in range(reps):
         _log(f"rep {rep}: warm-up and precompile")
-        fe = create_frontend(cfg, seq.cam, device=device)
-        for f in range(WARM):
-            fe.process(seq.frame(f))
-        fe.precompile()
-        _sync(device)
-        t0 = time.perf_counter()
-        fe.run((seq.frame(f) for f in range(WARM, n_frames)), pipelined=True)
-        _sync(device)
-        dt = time.perf_counter() - t0
-        fps.append((n_frames - WARM) / dt)
+        fe, rate = primary_rep(seq, device, n_frames, step_graphs)
+        fps.append(rate)
         ate.append(float(evaluation.ate_rmse(np.stack(fe.trajectory), gt_cw,
                                              with_scale=True)))
         resets.append(fe.n_resets)
         discards.append(fe.n_ba_discarded)
         redone.append(fe.n_redone)
         ba_runs.append(fe.n_ba_runs)
-        _log(f"rep {rep}: {fps[-1]} frames/s incl render ({dt} s / "
-             f"{n_frames - WARM} frames), ate_sim3={ate[-1]}, resets="
+        _log(f"rep {rep}: {fps[-1]} frames/s incl render "
+             f"({n_frames - WARM} frames), ate_sim3={ate[-1]}, resets="
              f"{resets[-1]}, ba_runs={ba_runs[-1]}, ba_discarded="
              f"{discards[-1]}, redone={redone[-1]}")
         if rep == 0:
@@ -220,7 +236,7 @@ def run_bench(n_frames: int = N_FRAMES, reps: int = REPS, height: int = 376,
         "ba_runs_reps": ba_runs,
         "production_gates": True,
         **{k: round(v, 2) if isinstance(v, float) else v
-           for k, v in probe.items()},
+           for k, v in probe.items() if k in PROBE_KEYS},
     }
     _log("offline refine")
     traj = global_refine(fe)

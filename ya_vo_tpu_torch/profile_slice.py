@@ -2,7 +2,7 @@
 time, idle share, launches and the ops that take the device time.
 
     python -m ya_vo_tpu_torch.profile_slice [--production | --textured]
-                                            [--trace PATH]
+                                            [--eager] [--trace PATH]
 
 Runs `chip_smoke.py`'s workload (the 40-frame 376x1241 stamps world at
 VOConfig() with window BA off, or with `--production` VOConfig()
@@ -11,9 +11,14 @@ unmodified: sync window BA and the redo of in-flight frames; or with
 textured world, rendered on the card inside the run): frames 0-11 warm
 the path, frames 12-39 run under `torch.profiler`. Device busy time
 is the union of the intervals of the profiler's device events (kernels and
-copies), each counted once. Also prints the hand-written kernels' launches
-a frame (`_build.LAUNCHES`), and the window solves and redone dispatches
-in the profiled window.
+copies), each counted once. The fused step runs as the frontend's step
+graphs (`--eager`: the eager step): a frame's `cudaLaunchKernel` and
+`cudaGraphLaunch` calls are counted apart, and its kernels on the device
+(`device_kernels`: the profiler's kernel events, those a graph launched
+included, each once), with each hand-written kernel's device events a
+frame beside its launches a frame (`_build.LAUNCHES`, which a replay
+counts) and the graph replays a frame. Also prints the window solves and
+redone dispatches in the profiled window.
 """
 
 from __future__ import annotations
@@ -46,9 +51,20 @@ def busy_us(events) -> tuple:
     return total, union
 
 
+def device_kernels(events, name: str = None) -> int:
+    """The kernels among the profiler's device events (not copies or
+    memsets), each counted once; with `name`, those of that kernel."""
+    return sum(e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))
+               and (name is None or name in e.name)
+               for e in events)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", help="write a Chrome trace here")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the eager step, not the step graphs")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--production", action="store_true",
                       help="VOConfig() unmodified (window BA on)")
@@ -66,7 +82,8 @@ def main() -> None:
     cfg = VOConfig()
     if not (args.production or args.textured):
         cfg = with_option(cfg, "ba", enabled=False)
-    fe = create_frontend(cfg, cam, device="cuda")
+    fe = create_frontend(cfg, cam, device="cuda",
+                         step_graphs=not args.eager)
     fe.run(frame(f) for f in range(WARM))
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -81,13 +98,22 @@ def main() -> None:
     total, union = (x / 1e3 for x in busy_us(prof.events()))
     ka = prof.key_averages()
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-    print(f"profiled {n} frames: wall {wall_ms:.1f} ms "
+    graph_launches = sum(e.count for e in ka if e.key == "cudaGraphLaunch")
+    evs = prof.events()
+    print(f"profiled {n} frames ({'eager step' if args.eager else 'step graphs'}"
+          f"): wall {wall_ms:.1f} ms "
           f"({wall_ms / n:.2f} ms/frame); device events {total:.1f} ms, "
           f"busy (union) {union:.1f} ms ({union / n:.2f} ms/frame); "
           f"idle share {1 - union / wall_ms:.4f}; "
-          f"cudaLaunchKernel {launches / n:.0f} a frame")
+          f"cudaLaunchKernel {launches / n:.1f} a frame, cudaGraphLaunch "
+          f"{graph_launches / n:.2f} a frame, kernels on the device "
+          f"{device_kernels(evs) / n:.1f} a frame")
     print("hand-written kernel launches a frame: " + ", ".join(
-        f"{k} {v / n:.2f}" for k, v in _build.LAUNCHES.items()))
+        f"{k} {v / n:.2f}" for k, v in _build.LAUNCHES.items())
+        + f"; graph replays {_build.REPLAYS['graphs'] / n:.2f} a frame")
+    print("hand-written kernels' device events a frame: " + ", ".join(
+        f"{k} {device_kernels(evs, _build.DEVICE_NAMES[k]) / n:.2f}"
+        for k in _build.KERNELS))
     print(f"window BA solves {fe.n_ba_runs - solves}, redone dispatches "
           f"{fe.n_redone - redone}, resets {fe.n_resets} in the window")
     print(ka.table(sort_by="self_device_time_total", row_limit=25))

@@ -16,14 +16,20 @@ projection (K1), pose GN, match including describe (K3), triangulation
 (`triangulate_fast`, the step's), the reprojection errors of the fresh
 points in both views, the two stable argsorts of the keyframe merge and the
 2048x2048 proximity test. The components run on clones of the snapshot, so
-each of the repeats reads the same state.
+each of the repeats reads the same state. After the eager fused step comes
+its replay (`graph_step`): the frontend's fresh step graph (the JAX tool's
+jitted step, as the frontend runs it on the card) on the same snapshot, its
+18 arguments copied into the graph's buffers each call, the keypoints and
+descriptors copied out.
 
 Each row: call ms (the host clock over `--reps` calls ended by
 `torch.cuda.synchronize()`, after one warm call), device ms (the union of
 the profiler's device events over `--reps` calls, as `profile_slice.busy_us`
 computes it, a call; a session without device events is repeated, 3 in
-all, then "not measured"), `cudaLaunchKernel` a call, and the hand-written
-kernels' launches a call (`_build.LAUNCHES`). JAX's `block_until_ready`
+all, then "not measured"), `cudaLaunchKernel` and `cudaGraphLaunch` a call,
+the device's kernels a call (the profiler's kernel events, each once,
+those a graph launched included), and the hand-written kernels' launches a
+call (`_build.LAUNCHES`, which a replay counts). JAX's `block_until_ready`
 time holds both the host and the device; in eager PyTorch the call's time
 and the device's differ by the host's issue of the launches.
 
@@ -51,7 +57,7 @@ from ya_vo_tpu_torch.features import brief, fast, matching
 from ya_vo_tpu_torch.geometry.triangulation import (reprojection_errors,
                                                     triangulate_fast)
 from ya_vo_tpu_torch.parallel.scaling_bench import sync_devices
-from ya_vo_tpu_torch.profile_slice import busy_us
+from ya_vo_tpu_torch.profile_slice import busy_us, device_kernels
 from ya_vo_tpu_torch.selfcheck import PROFILE_TRIES, bits_equal
 from ya_vo_tpu_torch.tracking import lk_cuda, pose_solver
 from ya_vo_tpu_torch.tracking.frontend import (
@@ -63,6 +69,7 @@ WORLD = dict(n_frames=12, n_landmarks=1200, height=376, width=1241,
              step=0.5, yaw_rate=0.002, seed=11, corridor=True)
 WARM = 8
 REPS = 20
+GRAPH_ROW = "fused step (graph replay)"
 
 
 def config(height: int, width: int, max_keypoints: int = 2048) -> VOConfig:
@@ -118,6 +125,18 @@ def fused_step(fe: Frontend, st: StepState):
     """(kp, desc, state_out, record) of the fused step on `st`."""
     kp, desc = fe._extract(st.img)
     return (kp, desc) + fe._step_body(kp, desc, *st.args)
+
+
+def graph_step(fe: Frontend, st: StepState):
+    """(kp, desc, state_out, record) of a replay of the frontend's fresh
+    step graph on `st` (a dispatch of its runner: `st`'s arguments copied
+    into the graph's buffers, the keypoints and descriptors copied out).
+    The replay writes the next state into those buffers, which hold the
+    frontend's device chain: call it inside `fe._throwaway_chain()`."""
+    g = fe._graphs
+    if g is None or not g.ready:
+        raise RuntimeError("the frontend's step graphs are not captured")
+    return g.dispatch(st.args)
 
 
 def chain(fe: Frontend, st: StepState) -> dict:
@@ -232,7 +251,9 @@ def measure(fn, device, reps: int = REPS) -> dict:
         fn()
     sync_devices([device])
     row = dict(call_ms=(time.perf_counter() - t0) / reps * 1e3,
-               device_ms=None, cuda_launch_kernel=None, kernel_launches=None)
+               device_ms=None, cuda_launch_kernel=None,
+               cuda_graph_launch=None, device_kernels=None,
+               kernel_launches=None)
     if device.type != "cuda":
         return row
     # a session that lost its device events (seen on an H100: a short
@@ -248,6 +269,9 @@ def measure(fn, device, reps: int = REPS) -> dict:
         evs = prof.events()
         row["cuda_launch_kernel"] = sum(e.name == "cudaLaunchKernel"
                                         for e in evs) / reps
+        row["cuda_graph_launch"] = sum(e.name == "cudaGraphLaunch"
+                                       for e in evs) / reps
+        row["device_kernels"] = device_kernels(evs) / reps
         row["kernel_launches"] = (sum(_build.LAUNCHES.values())
                                   - before) / reps
         union = busy_us(evs)[1]
@@ -266,7 +290,9 @@ def format_row(name: str, row: dict) -> str:
     device = ("not measured" if row["device_ms"] is None
               else f"{row['device_ms']:9.3f} ms")
     return (f"{name:32s} call {row['call_ms']:9.3f} ms  device {device}  "
-            f"cudaLaunchKernel {row['cuda_launch_kernel']:7.1f}  kernels "
+            f"cudaLaunchKernel {row['cuda_launch_kernel']:7.1f}  "
+            f"cudaGraphLaunch {row['cuda_graph_launch']:4.1f}  device "
+            f"kernels {row['device_kernels']:6.1f}  hand-written "
             f"{row['kernel_launches']:4.1f}")
 
 
@@ -286,6 +312,10 @@ def main(argv=None) -> None:
     x = chain(fe, st)
     for name, fn in components(fe, st, x):
         print(format_row(name, measure(fn, fe.device, a.reps)), flush=True)
+        if name == "fused step" and fe._graphs is not None:
+            with fe._throwaway_chain():
+                row = measure(lambda: graph_step(fe, st), fe.device, a.reps)
+            print(format_row(GRAPH_ROW, row), flush=True)
     print("one section: the port runs true float32 with TF32 off, so JAX's "
           "rows under default_matmul_precision('float32') have no "
           "counterpart")

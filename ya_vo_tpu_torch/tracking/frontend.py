@@ -18,6 +18,16 @@ normalization on ingest, the per-frame observers (`observers`, e.g.
 `viz.live.attach`) and the reset and rejected-solve dumps
 (`YA_VO_DUMP_RESET_DIR`, `YA_VO_DUMP_BA_DIR`).
 
+On the card the fused step is the JAX frontend's two compiled programs,
+`step` and `step_pre`, as two CUDA graphs (`step_graph.StepGraphs`, fresh
+and redo), captured at the first tracking dispatch and replayed on every
+later one, bit-equal to the eager step; the frame number and the free
+landmark capacity reach the step as device scalars. The window solve
+replays graphs too (`ba_window.SolveGraphs`). `Frontend(...,
+step_graphs=False)` runs the eager step and solves instead, for
+comparisons. On the CPU the runner handles its buffers as on the card,
+with the body run in place of a replay.
+
 Tracking state lives as tensors on `device`. Each frame's record is copied
 with `non_blocking` copies into pinned host memory behind a CUDA event, so
 the host resolves a frame `pipeline_depth - 1` frames after dispatching it
@@ -76,7 +86,7 @@ from ya_vo_tpu_torch.geometry import ransac
 from ya_vo_tpu_torch.geometry.triangulation import triangulate_fast
 from ya_vo_tpu_torch.parallel import dist_ba
 from ya_vo_tpu_torch.parallel import mesh as mesh_lib
-from ya_vo_tpu_torch.tracking import lk_cuda, pose_solver
+from ya_vo_tpu_torch.tracking import lk_cuda, pose_solver, step_graph
 from ya_vo_tpu_torch.utils.convert import DEVICE_KEYS, offsets_from_numpy
 from ya_vo_tpu_torch.worldmap.mapstore import MapStore
 
@@ -198,13 +208,27 @@ def merge_order(keep, r_valid):
             torch.argsort((~r_valid).to(torch.int32), stable=True))
 
 
+def step_scalars(frame_no: int, cap_left: int, device):
+    """The step's per-frame arguments, the frame number and the map's free
+    landmark capacity, as 0-d int64 tensors on `device` (JAX traces them as
+    scalars): one non-blocking copy from pinned memory on the card."""
+    t = torch.tensor([frame_no, cap_left], dtype=torch.int64,
+                     pin_memory=torch.device(device).type == "cuda")
+    t = t.to(device, non_blocking=True)
+    return t[0], t[1]
+
+
 def camera_center(T):
     """Camera centre of a world->camera pose (numpy or torch)."""
     return -T[:3, :3].T @ T[:3, 3]
 
 
 class Frontend:
-    def __init__(self, config: VOConfig, cam: Camera, device=None):
+    def __init__(self, config: VOConfig, cam: Camera, device=None,
+                 step_graphs: bool = True):
+        """`step_graphs=False` runs every tracking dispatch as the eager
+        step and every window solve as the eager `solve_window` (on the
+        card, for comparisons with the graphs' replays)."""
         _check_supported(config)
         # geometry runs in true float32 on the card
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -311,6 +335,17 @@ class Frontend:
         # dispatch
         self._state_dirty = False
         self._pending_q: deque = deque()
+        # the fused step's fresh and redo graphs (captured at the first
+        # tracking dispatch), or None: the eager step; on the card the
+        # window solve's graphs too (`ba_window.SolveGraphs`)
+        self._graphs = step_graph.StepGraphs(self) if step_graphs else None
+        bc = config.ba
+        self._window_kw = dict(iters=bc.iters, huber_delta=bc.huber_delta,
+                               damping=bc.damping, n_fixed_poses=2,
+                               pose_prior_weight=bc.pose_prior_weight)
+        self._solve_graphs = (
+            ba_window.SolveGraphs(cam, **self._window_kw)
+            if step_graphs and self.device.type == "cuda" else None)
         # distributed backend: the window's landmark axis sharded over the
         # mesh (BAConfig.distributed); (solve_fn, mesh) or None
         self._dist_ba = None
@@ -348,11 +383,12 @@ class Frontend:
 
     def _step_body(self, kp, desc, kf_img, img_curr, prev_img, track_uv,
                    anchor_uv, track_mask, lm_pos, pose, rel, kf_desc, kf_uv,
-                   kf_mask, kf_pose, kf_ref, fsk, slot_stamp, frame_no: int,
-                   cap_left: int):
+                   kf_mask, kf_pose, kf_ref, fsk, slot_stamp, frame_no,
+                   cap_left):
         """The state-dependent rest of the fused frame on extraction
         (kp, desc): LK + pose GN, speculative replenishment and the
-        keyframe decision and merge. Returns (state_out, record) with no
+        keyframe decision and merge. `frame_no` and `cap_left` are 0-d
+        int64 tensors (`step_scalars`). Returns (state_out, record) with no
         host sync."""
         tc = self.cfg.tracking
         mc = self.cfg.matching
@@ -450,9 +486,10 @@ class Frontend:
     def _pull(self, record):
         """Start the record's device->host copies; returns (host tensors,
         event). On the card the copies land in pinned memory behind the
-        event; on the CPU they are plain copies."""
+        event, queued before any later replay of the graph that owns the
+        record; on the CPU they are plain copies."""
         if self.device.type != "cuda":
-            return list(record), None
+            return [t.clone() for t in record], None
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in record]
         for h, t in zip(host, record):
@@ -648,7 +685,8 @@ class Frontend:
         """`_step_body`'s arguments after (kp, desc) for a dispatch of
         `img` as frame `frame_id`: the device state, with the LK template
         image `prev_override`, else the last dispatch's, else the last
-        frame's."""
+        frame's, then the frame number and the free landmark capacity
+        (`step_scalars`)."""
         if prev_override is not None:
             prev_img = prev_override
         elif self._d_prev_img is not None:
@@ -659,20 +697,33 @@ class Frontend:
                 self._d_anchor_uv, self._d_track_valid, self._d_lm_pos,
                 self._d_pose, self._d_rel, self._d_kf_desc, self._d_kf_uv,
                 self._d_kf_mask, self._d_kf_pose, self._d_kf_ref,
-                self._d_fsk, self._d_slot_stamp, self.frame_id,
-                self.map.free_landmark_capacity)
+                self._d_fsk, self._d_slot_stamp,
+                *step_scalars(self.frame_id, self.map.free_landmark_capacity,
+                              self.device))
 
     def _dispatch_track(self, img, pre=None, prev_override=None) -> dict:
         """Launch the fused step on the device-resident state and commit the
         state chain; the record's copies to the host start here and are
         read in _finish_track. `pre` = (kp, desc) reuses an earlier
         extraction of `img` (a redo); `prev_override` is the LK template
-        image that dispatch used."""
+        image that dispatch used. Once the step graphs are captured, a
+        replay of the fresh or the redo graph; else the eager step, which
+        the frontend's first dispatch runs as the graphs' warm-up before
+        their capture."""
         t0 = time.perf_counter()
         args = self._step_args(img, prev_override)
-        prev_img = args[2]
-        kp, desc = self._extract(img) if pre is None else pre
-        state_out, record = self._step_body(kp, desc, *args)
+        g = self._graphs
+        if g is not None and g.ready:
+            prev_img = g.source(args[2])
+            kp, desc, state_out, record = g.dispatch(args, pre)
+        else:
+            prev_img = args[2]
+            with (contextlib.nullcontext() if g is None
+                  else g.warm_stream()):
+                kp, desc = self._extract(img) if pre is None else pre
+                state_out, record = self._step_body(kp, desc, *args)
+            if g is not None:
+                g.capture(args, kp, desc)
         (self._d_anchor_uv, self._d_track_valid, self._d_lm_pos,
          self._d_pose, self._d_rel, self._d_kf_desc, self._d_kf_uv,
          self._d_kf_mask, self._d_kf_pose, self._d_kf_img, self._d_kf_ref,
@@ -846,17 +897,16 @@ class Frontend:
 
     def _solve(self, prob):
         """One window solve on the current stream (sharded over the mesh
-        when `_dist_ba` is built), read back to numpy: ((poses, landmarks),
-        wall ms)."""
-        bc = self.cfg.ba
+        when `_dist_ba` is built; else on the card as the window solve's
+        graphs, unless `step_graphs=False`), read back to numpy: ((poses,
+        landmarks), wall ms)."""
         t0 = time.perf_counter()
         if self._dist_ba is not None:
             poses, lms = self._solve_window_distributed(prob)
         else:
-            res = ba_window.solve_window(
-                prob, self.cam, iters=bc.iters, huber_delta=bc.huber_delta,
-                damping=bc.damping, n_fixed_poses=2,
-                pose_prior_weight=bc.pose_prior_weight)
+            res = (self._solve_graphs(prob) if self._solve_graphs is not None
+                   else ba_window.solve_window(prob, self.cam,
+                                               **self._window_kw))
             poses, lms = res.poses, res.landmarks
         out = (self._np(poses), self._np(lms))
         return out, (time.perf_counter() - t0) * 1e3
@@ -1518,11 +1568,12 @@ class Frontend:
     # ------------------------------------------------------------------ #
     @contextlib.contextmanager
     def _throwaway_chain(self):
-        """Run dispatches on clones of the device chain (`DEVICE_KEYS`); the
-        chain itself is put back afterwards, untouched."""
-        saved = {k: getattr(self, k) for k in DEVICE_KEYS}
-        for k, v in saved.items():
-            setattr(self, k, None if v is None else v.clone())
+        """Run dispatches that leave the device chain (`DEVICE_KEYS`) as it
+        was: its contents are saved as copies and put back afterwards (a
+        replay overwrites the step graphs' buffers, which hold the chain,
+        in place)."""
+        saved = {k: None if getattr(self, k) is None
+                 else getattr(self, k).clone() for k in DEVICE_KEYS}
         try:
             yield
         finally:
@@ -1537,10 +1588,11 @@ class Frontend:
         """Pay the steady state's first-use costs before a timed loop, with
         no effect on the session: the kernels' build, one fresh and one
         redo dispatch (`pre=`, `prev_override=`) on a throwaway copy of the
-        device chain (first cuBLAS/cuSOLVER calls of the pose GN, the
-        pinned record buffers) and one `solve_window` at this session's
-        window shapes, its result dropped. Call after the bootstrap. The
-        device chain, the map and the counters are left as they were."""
+        device chain (the step graphs' warm-up and capture, then a replay
+        of the redo graph; the pinned record buffers) and one
+        `solve_window` at this session's window shapes, its result
+        dropped. Call after the bootstrap. The device chain, the map and
+        the counters are left as they were."""
         if (self._d_kf_img is None or self.last_img is None
                 or self.last_kp is None):
             return
@@ -1570,10 +1622,14 @@ class Frontend:
         chained dispatches (extraction, step and the start of the record's
         copies, as the pipelined driver issues them) over `imgs` in turn, on
         a throwaway copy of the device chain, with one synchronize at the
-        end; one warm step before the clock. Where the host issues slower
-        than the card computes, as on an H100 with eager PyTorch, this is
-        the host's issue rate, not the device time. The session is left as
-        it was. Returns {"device_step_ms", "fps_device", "n_steps"}."""
+        end; one warm step before the clock (on the card, with the step
+        graphs, their capture when they have none yet). Where the host
+        issues slower than the card computes, as on an H100 with eager
+        PyTorch, this is the host's issue rate, not the device time. The
+        session is left as it was. Returns {"device_step_ms", "fps_device",
+        "n_steps", "graph_replays", "kernel_launches"}, the last two a
+        step: graph replays (`_build.REPLAYS`) and the hand-written
+        kernels' launches, which a replay counts (`_build.LAUNCHES`)."""
         if self._d_kf_img is None:
             raise RuntimeError("probe requires an initialized track chain")
         imgs = [self._ingest(im) for im in imgs]
@@ -1582,11 +1638,17 @@ class Frontend:
                 self._dispatch_track(imgs[i % len(imgs)])
                 if i == 0:
                     self._sync()
+                    replays = _build.REPLAYS["graphs"]
+                    launches = sum(_build.LAUNCHES.values())
                     t0 = time.perf_counter()
             self._sync()
             dt = time.perf_counter() - t0
         return {"device_step_ms": dt / n_steps * 1e3,
-                "fps_device": n_steps / dt, "n_steps": n_steps}
+                "fps_device": n_steps / dt, "n_steps": n_steps,
+                "graph_replays": (_build.REPLAYS["graphs"] - replays)
+                / n_steps,
+                "kernel_launches": (sum(_build.LAUNCHES.values()) - launches)
+                / n_steps}
 
     def finish(self) -> None:
         """End of sequence: resolve every frame still in flight, then drain
