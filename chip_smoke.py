@@ -39,8 +39,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      block of 256 threads) on every case of
      `selfcheck.pose_gn_golden_cases` (tests/torch_data/pose_gn), one
      launch a call, and its cluster size and device ms at the real step
-     and at a recorded solve that runs to the 40-iteration cap. The
-     checks and their tolerances are `ya_vo_tpu_torch/selfcheck.py`'s;
+     and at a recorded solve that runs to the 40-iteration cap. Then K5,
+     the window BA's GN loop in one launch, against JAX's recorded solve
+     of every window of tests/torch_data/window_gn (tests/test_torch_ba.py's
+     tolerances, JAX's iterations, one launch a solve), and against its
+     plain version on the full-width one (W 8, O 2048, L 4096): both
+     versions' iterations, device and call ms, launches a call and bound.
+     The checks and their tolerances are `ya_vo_tpu_torch/selfcheck.py`'s;
   4. main path: `create_frontend(cfg, cam, device="cuda").run(frames)` over
      the 40-frame stamps world at VOConfig() defaults with window BA off:
      0 resets, 2048 keypoints every tracked frame, the keyframes and
@@ -61,11 +66,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the end, the step scale after the blackout within 5% of the scale
      before it, ATE_sim3 over the real frames below 0.25; run with
      YA_VO_DUMP_RESET_DIR set (phase 11 (c));
-  7. determinism: `solve_window` on phase 5's last window problem twice,
-     bit-identical poses and landmarks; its device and call time; the
-     window solve's CUDA graphs (`ba_window.SolveGraphs`, which the
-     frontend runs) bit-equal to it, warm-up and replay, and their device
-     and call time;
+  7. the window solve: K5 on phase 5's last window problem twice,
+     bit-identical, and against `solve_window_plain` on the card at
+     selfcheck's tolerances with both versions' iterations; K5's device
+     ms, the whole solve's device and call ms, the plain version's ms, the
+     bound and its share (the kernels line's K5 numbers);
   8. textured path: the renderer against the float64 tracer at 376x1241 on
      the card (selfcheck's check), its device ms and kernel launches a
      frame; then `create_frontend(VOConfig(), seq.cam)` unmodified over
@@ -178,9 +183,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 The launch counts are those the card ran: a kernel captured in a graph
 counts once at every replay (`_build.count_replay`), never at its capture.
 Each of phases 4-6, 8-12 zeroes the launch counts just before its run,
-reads them just after, and fails unless every kernel ran in it; so do
-phase 13's `profile_bench` and `diag_primary` runs (the latter's counts
-are its pipelined run's, after its warm frames and `precompile`, which
+reads them just after, and fails unless every kernel ran in it and K5
+once a window solve of the run (`ba_window.solve_window` calls, counted
+from the build on and zeroed with the launch counts); a run without a
+window solve (phase 4, BA off; phase 12 (d) and (e), the sharded backend)
+must not launch K5 and is exempt from it; so do phase 13's
+`profile_bench` and `diag_primary` runs (the latter's counts are its
+pipelined run's, after its warm frames and `precompile`, which
 `diag_primary.main` zeroes and returns). Prints a
 JSON line with the kernels' results, then the card, then, as the last
 line, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -230,8 +239,9 @@ SEQ = synthetic.STAMPS
 # the trajectory.
 MAIN_KEYFRAMES = 20
 MAIN_ATE = 0.0240
-# The production path's ATE_sim3 at four digits, likewise.
-MAIN_BA_ATE = 0.0147
+# The production path's ATE_sim3 at four digits, likewise, with the
+# window solve as K5 (csrc/window_gn.cu; 0.0147 with the eager solve)
+MAIN_BA_ATE = 0.0146
 # The JAX package's frontend on the CPU on the same frames, LK with the
 # TPU kernel's semantics (`port_jax_reference.py`): window BA off, on, and
 # on through the blackout. Its RANSAC draws are not the port's, so ATEs
@@ -245,14 +255,15 @@ JAX_BLACKOUT = dict(ate_sim3=0.013599145102656892, resets=1,
 BLACK_AT, BLACK_N = 21, 2
 # phase 8: bench.py's textured world and the frames of it run; the card's
 # ATE_sim3 at four digits and keyframes, as the port's card runs print
-# them with the float64 null vector and pose GN's kernel (like MAIN_ATE,
-# they follow those rounding outcomes); the JAX package's frontend on its own
+# them with the float64 null vector, pose GN's kernel and the window
+# solve's (like MAIN_ATE, they follow those rounding outcomes; 0.0235 with
+# the eager window solve); the JAX package's frontend on its own
 # render of the same
 # frames (`port_jax_reference.py --runs textured`; its sensor noise and
 # RANSAC draws are not the card's, so these compare in size only)
 TEXTURED = dict(n_frames=410, seed=5)
 TEXTURED_N = 150
-TEXTURED_ATE = 0.0235
+TEXTURED_ATE = 0.0205
 TEXTURED_KEYFRAMES = 75
 JAX_TEXTURED = dict(ate_sim3=0.028769486322771494, resets=1,
                     relocalizations=1, keyframes=75, ba_solves=24)
@@ -264,8 +275,9 @@ JAX_TEXTURED = dict(ate_sim3=0.028769486322771494, resets=1,
 # the TPU kernel's semantics); (b) the first CLI_N frames of phase 8's world
 # as a KITTI tree under configs/KITTI.json, the JAX CLI on its own render of
 # the same frames beside it; (b)'s ATE_sim3 is bounded, not pinned
-# (asynchronous BA applies at timing-dependent frames)
-CLI_ATE = 0.0217
+# (asynchronous BA applies at timing-dependent frames). CLI_ATE follows
+# the window solve's rounding too (0.0217 with the eager solve).
+CLI_ATE = 0.0205
 JAX_CLI = dict(frames=30, resets=0, ba_runs=4, ba_discarded=0,
                relocalizations=0, ate_sim3_m=0.0104)
 CLI_N = 120
@@ -407,12 +419,43 @@ def host_rss_mb() -> float:
     return int(kb) / 1024
 
 
+# the window solves (`ba_window.solve_window` calls) since the launch
+# counts were last set to 0 (`count_window_solves`)
+_SOLVES = [0]
+
+
+def count_window_solves() -> None:
+    """From here on, count every call of `ba_window.solve_window` (the
+    frontend's solves, its backend worker's and its warm-up, global_refine's)
+    and zero the count wherever the launch counts are zeroed (the phases
+    here, and the tools that zero them before their timed window), so that
+    `path_launches` can hold K5 to one launch a solve."""
+    solve, reset = ba_window.solve_window, _build.reset_launches
+
+    def counted(*args, **kw):
+        _SOLVES[0] += 1
+        return solve(*args, **kw)
+
+    def reset_counts():
+        reset()
+        _SOLVES[0] = 0
+
+    ba_window.solve_window = counted
+    _build.reset_launches = reset_counts
+
+
 def path_launches(name: str, launches: dict = None) -> dict:
     """The launch counts of the run just made (`launches`, by default all
-    since the counts were last set to 0); fails unless every kernel ran in
-    it."""
+    since the counts were last set to 0); fails unless K5 (window_gn) ran
+    once a window solve of the run, and every other kernel, and K5 too
+    where the run solved a window (not with BA off, nor with the sharded
+    backend), ran in it."""
     launches = dict(_build.LAUNCHES if launches is None else launches)
-    check(all(launches.values()),
+    solves = _SOLVES[0]
+    check(launches["window_gn"] == solves,
+          f"{name}: {launches['window_gn']} K5 launches for {solves} "
+          f"window solves")
+    check(all(n for k, n in launches.items() if solves or k != "window_gn"),
           f"{name}: a kernel was not launched: {launches}")
     return launches
 
@@ -549,35 +592,13 @@ def run_reset(frames, poses_gt, cam, card, dump_dir=None):
 
 
 def check_ba_determinism(fe):
-    """Phase 7: the last window problem of phase 5 solved twice, bit for
-    bit; one solve's device time (all its device events) and call time."""
-    bc = fe.cfg.ba
-    prob = fe._last_ba_prob
-
-    def solve():
-        return ba_window.solve_window(
-            prob, fe.cam, iters=bc.iters, huber_delta=bc.huber_delta,
-            damping=bc.damping, n_fixed_poses=2,
-            pose_prior_weight=bc.pose_prior_weight)
-
-    a, b = solve(), solve()
-    check(bits_equal(a.poses, b.poses) and bits_equal(a.landmarks,
-                                                      b.landmarks),
-          "solve_window: two solves of one problem differ")
-    # the window solve's graphs: the first call eager, then replays
-    graphs = ba_window.SolveGraphs(fe.cam, **fe._window_kw)
-    for _ in range(2):
-        g = graphs(prob)
-        check(all(bits_equal(x, y) for x, y in zip(a[:5], g[:5]))
-              and g.n_iters == a.n_iters,
-              "SolveGraphs: the graphs' solve differs from solve_window")
-    return dict(bit_identical=True, n_iters=a.n_iters,
-                n_obs=int(a.n_obs), n_landmarks=int(prob.lm_valid.sum()),
-                device_ms=device_ms(solve, reps=3),
-                call_ms=time_ms(solve, reps=3),
-                graphs_bit_equal=True,
-                graphs_device_ms=device_ms(lambda: graphs(prob), reps=3),
-                graphs_call_ms=time_ms(lambda: graphs(prob), reps=3))
+    """Phase 7: the last window problem of phase 5 through K5
+    (`selfcheck.check_window_gn`): two solves bit for bit, against the
+    plain version on the card at its tolerances with both versions'
+    iterations; K5's device ms (its own events), the whole solve's device
+    ms (the layout's sort and search too) and call ms, launches a call, the
+    plain version's ms, the bound and its share of K5's device ms."""
+    return sc.check_window_gn(fe._last_ba_prob, fe.cam, **fe._window_kw)
 
 
 def run_textured(card) -> dict:
@@ -1011,7 +1032,7 @@ def check_dist_solvers(card):
                                    else x for x in prob))
     exact = _solution(solve[1](dist_ba.from_window_problem(prob64)))
     r = dict(window=dict(W=W, L=L, n_obs=int(prob.obs_valid.sum())),
-             sw_n_iters_live=sw_live.n_iters)
+             sw_n_iters_live=int(sw_live.n_iters))
     for n in ns:
         d = float((sol[n][0] - sw.poses).abs().max())
         check(d <= 5e-3, f"dist BA {n} shards: poses {d} from solve_window")
@@ -1456,6 +1477,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.library()
+    count_window_solves()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path()}); host rss {host_rss_mb():.1f} MB",
           flush=True)
@@ -1505,6 +1527,14 @@ def main() -> int:
             lambda: pose_solver.solve_pose(*capped, **gn40),
             "pose_gn_kernel", launches_per_call=1), card=card)), flush=True)
     del capped
+    # K5 against JAX's recorded solves (tests/torch_data/window_gn, with
+    # JAX's iterations) and against its plain version on the full-width one
+    wprob, wcam, wkw, _ = sc.load_window_case("full_width")
+    print("kernel window_gn: " + json.dumps(dict(
+        goldens=sc.check_window_gn_goldens(),
+        full_width=sc.check_window_gn(wprob, wcam, **wkw), card=card)),
+        flush=True)
+    del wprob
     for name, r in results.items():
         print(f"kernel {name}: " + json.dumps(r), flush=True)
     print("detect: " + json.dumps(sc.check_detect(img1, kw)), flush=True)
@@ -1558,8 +1588,8 @@ def main() -> int:
         dumps = check_reset_dumps(dump_dir, reset)
     finally:
         shutil.rmtree(dump_dir, ignore_errors=True)
-    print("ba solve: " + json.dumps(check_ba_determinism(fe5)),
-          flush=True)
+    results["window_gn"] = check_ba_determinism(fe5)
+    print("ba solve: " + json.dumps(results["window_gn"]), flush=True)
     del fe5
     # 8. textured path
     textured = run_textured(card)
@@ -1640,11 +1670,16 @@ def main() -> int:
                             "ya_vo_tpu/tracking/lk_pallas.py:217"),
                "pose_gn": ("ya_vo_tpu_torch/csrc/pose_gn.cu",
                            "ya_vo_tpu/tracking/pose_solver.py:144 "
-                           "(lax.while_loop, XLA)")}
+                           "(lax.while_loop, XLA)"),
+               "window_gn": ("ya_vo_tpu_torch/csrc/window_gn.cu",
+                             "ya_vo_tpu/ba/window.py:363 "
+                             "(lax.while_loop, XLA)")}
     # ms is the kernel's device time per call of its wrapper (per tracker
     # call for LK); library_ms is null where no one PyTorch call computes
     # the function (LK's pyramid solve, FAST's segment test + Harris + NMS,
-    # pose GN's robust solve with its early exit).
+    # pose GN's robust solve with its early exit, the window's Schur GN
+    # loop with its early exit). K5's numbers are phase 7's, on phase 5's
+    # last window.
     # launches: the production path's (phase 5), VOConfig() unmodified
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1],

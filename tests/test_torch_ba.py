@@ -8,7 +8,8 @@ test_frontend_e2e.py's 256x768 sequence with BA on (captured by wrapping
 `ya_vo_tpu.ba.window.solve_window`). The JAX iteration count is read from
 the while-loop's counter through a host callback.
 
-Held: equal iteration counts; cost_initial within rtol 1e-4; cost_final no
+Held (`selfcheck.hold_window_solution`, which K5's tests on the card
+share): equal iteration counts; cost_initial within rtol 1e-4; cost_final no
 worse than the JAX solve's by more than rtol 1e-4; every valid
 observation's reprojection within 5e-2 px of the JAX solution's; poses
 within atol 1e-4 and landmarks within atol 1e-3 of the JAX ones, unless
@@ -41,13 +42,13 @@ from ya_vo_tpu.config import VOConfig as JVOConfig
 from ya_vo_tpu.tracking import lk as jlk
 from ya_vo_tpu.tracking.frontend import Frontend as JFrontend
 from ya_vo_tpu.utils import synthetic as jsynthetic
+from ya_vo_tpu_torch import selfcheck as sc
 from ya_vo_tpu_torch.ba import window as twindow
 from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.tracking.frontend import Frontend
 from ya_vo_tpu_torch.utils import convert
 from ya_vo_tpu_torch.utils import synthetic as tsynthetic
 
-POSE_ATOL, LM_ATOL, COST_RTOL, REPROJ_PX = 1e-4, 1e-3, 1e-4, 5e-2
 LIVE = dict(iters=8, huber_delta=2.4477, damping=1e-4, n_fixed_poses=2,
             rel_tol=1e-3, pose_prior_weight=100.0)   # the frontend's solve
 
@@ -82,48 +83,32 @@ def jax_solve(prob, cam, **kw):
     return res, counts[-1]
 
 
-def reprojections(prob: twindow.BAProblem, cam, poses, landmarks):
-    X = landmarks[prob.obs_lm.clamp(min=0)]
-    pc = torch.einsum("wij,woj->woi", poses[:, :3, :3], X) \
-        + poses[:, None, :3, 3]
-    return torch.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx,
-                        cam.fy * pc[..., 1] / pc[..., 2] + cam.cy], -1)
+def jax_reference(jprob, jcam, **kw) -> dict:
+    """JAX's solve of `jprob` as a reference for
+    `selfcheck.hold_window_solution`: its outputs (numpy), its while-loop's
+    iterations, and the distances of its poses and landmarks to the port's
+    float64 solve for as many iterations."""
+    res, n_ref = jax_solve(jprob, jcam, **kw)
+    exact = twindow.solve_window(to_port(jprob, torch.float64),
+                                 convert.camera_from_numpy(jcam),
+                                 **dict(kw, iters=n_ref, rel_tol=-1.0))
+    ref = {k: np.asarray(getattr(res, k)) for k in sc.WINDOW_OUTPUTS[:-1]}
+    ref["n_iters"] = n_ref
+    for k in ("poses", "landmarks"):
+        ref[f"{k}_to_f64"] = float(np.abs(
+            ref[k] - getattr(exact, k).numpy()).max())
+    return ref
 
 
 def compare(jprob, jcam, **kw) -> dict:
     """Solve on both sides (and the port in float64 for JAX's number of
-    iterations), assert the module docstring's tolerances, and return the
-    differences."""
-    ref, n_ref = jax_solve(jprob, jcam, **kw)
+    iterations), assert the module docstring's tolerances
+    (`selfcheck.hold_window_solution`), and return the differences."""
+    ref = jax_reference(jprob, jcam, **kw)
     cam = convert.camera_from_numpy(jcam)
     prob = to_port(jprob)
     out = twindow.solve_window(prob, cam, **kw)
-    assert out.n_iters == n_ref
-    exact = twindow.solve_window(to_port(jprob, torch.float64), cam,
-                                 **dict(kw, iters=n_ref, rel_tol=-1.0))
-    d = {}
-    for name, atol in (("poses", POSE_ATOL), ("landmarks", LM_ATOL)):
-        a = getattr(out, name).numpy()
-        b = np.asarray(getattr(ref, name))
-        d[name] = np.abs(a - b).max()
-        d[name + "_ref_to_f64"] = np.abs(
-            b - getattr(exact, name).numpy()).max()
-        assert d[name] <= max(atol, 2 * d[name + "_ref_to_f64"]), d
-    np.testing.assert_allclose(float(out.cost_initial),
-                               float(ref.cost_initial), rtol=COST_RTOL)
-    assert float(out.cost_final) <= float(ref.cost_final) * (1 + COST_RTOL)
-    assert int(out.n_obs) == int(ref.n_obs)
-    ref_poses = torch.as_tensor(np.array(ref.poses))
-    ref_lms = torch.as_tensor(np.array(ref.landmarks))
-    # the observations that enter the cost at the JAX solution
-    seg = twindow.segments(prob.obs_lm, len(ref_lms))
-    valid = twindow._obs_terms(ref_poses, ref_lms, prob, cam,
-                               kw["huber_delta"], seg)[-1]
-    uv_ref = reprojections(prob, cam, ref_poses, ref_lms)
-    uv = reprojections(prob, cam, out.poses, out.landmarks)
-    d["reproj_px"] = (uv - uv_ref).norm(dim=-1)[valid].max().item()
-    assert d["reproj_px"] <= REPROJ_PX, d
-    return d
+    return sc.hold_window_solution(prob, cam, kw, out, ref)
 
 
 @pytest.mark.parametrize("case", [dict(), dict(noise=0.5, seed=1)])
@@ -164,7 +149,7 @@ def test_solve_window_matches_jax_on_frontend_windows(frontend_problems,
                       n_fixed_poses=2, pose_prior_weight=100.0)
     assert np.asarray(prob.obs_valid).sum() > 1000
     d = compare(prob, cam, **kw)
-    assert d["poses"] <= POSE_ATOL, d
+    assert d["poses"] <= sc.WINDOW_POSE_ATOL, d
 
 
 def test_solve_window_is_deterministic():

@@ -46,7 +46,7 @@ import torch
 
 from tests.test_ba import make_problem
 from tests.test_torch_ba import (LIVE, frontend_problems,  # noqa: F401
-                                 reprojections, to_port)
+                                 to_port)
 import tests.test_torch_frontend  # noqa: F401  (one torch thread a worker)
 from ya_vo_tpu.parallel import dist_ba as jdist
 from ya_vo_tpu.parallel import mesh as jmesh
@@ -54,6 +54,7 @@ from ya_vo_tpu.parallel import scaling_bench as jbench
 from ya_vo_tpu_torch.ba import window as twindow
 from ya_vo_tpu_torch.parallel import dist_ba, scaling_bench
 from ya_vo_tpu_torch.parallel import mesh as mesh_lib
+from ya_vo_tpu_torch.selfcheck import window_reprojections as reprojections
 from ya_vo_tpu_torch.utils import convert
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

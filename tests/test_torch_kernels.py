@@ -23,6 +23,7 @@ import torch
 
 from ya_vo_tpu_torch import _build, create_frontend
 from ya_vo_tpu_torch import selfcheck as sc
+from ya_vo_tpu_torch.ba import window as ba_window
 from ya_vo_tpu_torch.config import VOConfig
 from ya_vo_tpu_torch.features import fast, fast_cuda, hamming_cuda, matching
 from ya_vo_tpu_torch.geometry import epipolar, ransac
@@ -533,8 +534,11 @@ def test_cpu_tensors_take_the_plain_versions(frames):
     T, pts, uv_p, mask_p, cam = sc.pose_gn_problem(n=64, device="cpu")
     pose_solver.solve_pose(T, pts, uv_p, mask_p, cam)
     pose_solver.solve_pose(T, pts, uv_p, mask_p, cam, with_iters=True)
+    prob, wcam, kw, _ = sc.load_window_case("synthetic", "cpu")
+    ba_window.solve_window(prob, wcam, **kw)
     assert _build.LAUNCHES == {"fast_score": 0, "fast_select": 0,
-                               "hamming": 0, "lk_level": 0, "pose_gn": 0}
+                               "hamming": 0, "lk_level": 0, "pose_gn": 0,
+                               "window_gn": 0}
 
 
 def test_lk_level_table_from_pyramids(frames):
@@ -614,7 +618,7 @@ def test_build_is_keyed_by_sources():
     assert path.name == "libyavo_kernels.so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "fast_score.cu", "fast_select.cu", "hamming.cu", "lk_level.cu",
-        "pose_gn.cu"]
+        "pose_gn.cu", "window_gn.cu"]
     assert [f"{k}.cu" for k in _build.KERNELS] == sorted(
         p.name for p in _build.CSRC.glob("*.cu"))
 
@@ -688,7 +692,6 @@ def test_dist_solver_on_the_card(cuda):
     `solve_window` run for the same iterations; a second 4-shard solve bit
     for bit."""
     from chip_smoke import _reprojection_px, _solution
-    from ya_vo_tpu_torch.ba import window as ba_window
 
     prob, dprob, cam, kw, solve = _small_window(cuda)
     for s in solve.values():

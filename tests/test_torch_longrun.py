@@ -143,7 +143,7 @@ def test_longrun_record_at_a_tiny_size(small_record):
     assert rec["dropped_landmarks"] == 0
     assert set(rec["launches_per_frame"]) == {"fast_score", "fast_select",
                                               "hamming", "lk_level",
-                                              "pose_gn"}
+                                              "pose_gn", "window_gn"}
 
 
 def test_longrun_cli_writes_the_tools_layout(small_record, tmp_path,

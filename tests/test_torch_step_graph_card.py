@@ -14,10 +14,9 @@ keyframe pose and landmarks rebound), a replay of each graph equals the
 eager step (`_extract` + `_step_body` on clones of the same arguments) on
 all 15 state outputs and 16 record tensors, bit for bit, and adds one
 launch of each of its kernels to `_build.LAUNCHES` (fresh: the five; redo:
-LK, Hamming and pose GN) and one replay to `_build.REPLAYS`. The window
-solve's graphs (`ba_window.SolveGraphs`) equal `solve_window` bit for bit
-(poses, landmarks, costs, observations and iterations) on the windows a
-`VOConfig()` run of that world solves and on `scaling_bench`'s problem.
+LK, Hamming and pose GN; no window solve) and one replay to
+`_build.REPLAYS`. The window solve, one launch of K5, is held in
+tests/test_torch_window_gn_card.py.
 """
 
 import numpy as np
@@ -25,13 +24,11 @@ import pytest
 import torch
 
 from ya_vo_tpu_torch import _build, create_frontend
-from ya_vo_tpu_torch.ba import window as ba_window
 from ya_vo_tpu_torch.config import VOConfig
-from ya_vo_tpu_torch.parallel import scaling_bench
 from ya_vo_tpu_torch.selfcheck import bits_equal
 from ya_vo_tpu_torch.utils import synthetic
 
-FRESH = dict.fromkeys(_build.KERNELS, 1)
+FRESH = dict(dict.fromkeys(_build.KERNELS, 1), window_gn=0)
 REDO = dict(FRESH, fast_score=0, fast_select=0)
 
 
@@ -111,33 +108,3 @@ def test_eager_frontend_captures_nothing(cuda, stamps):
     fe.run(frames[:6])
     assert fe._graphs is None and _build.REPLAYS["graphs"] == 0
     assert _build.LAUNCHES["lk_level"] == 4 + fe.n_redone
-
-
-@pytest.mark.cuda
-def test_window_solve_graphs_match_solve_window(cuda, stamps):
-    frames, cam = stamps
-    fe = create_frontend(VOConfig(), cam, device="cuda", step_graphs=False)
-    probs = []
-    solve = fe._solve
-
-    def kept(prob):
-        probs.append(prob)
-        return solve(prob)
-
-    fe._solve = kept
-    fe.run(frames)
-    assert fe.n_ba_runs >= 2 and len(probs) == len(fe.ba_ms)
-    W, L = VOConfig().map.window_size, VOConfig().ba.max_window_landmarks
-    probs.append(scaling_bench.window_problem(L, W, device="cuda"))
-    graphs = ba_window.SolveGraphs(cam, **fe._window_kw)
-    keys = set()
-    for prob in probs:
-        ref = ba_window.solve_window(prob, cam, **fe._window_kw)
-        for _ in range(2):           # the warm-up, then a replay
-            got = graphs(prob)
-            for a, b in zip(ref[:5], got[:5]):
-                assert bits_equal(a, b)
-            assert got.n_iters == ref.n_iters
-        seg = ba_window.segments(prob.obs_lm, L)
-        keys.add(tuple(t.shape for t in (*prob, *seg)))
-    assert set(graphs._graphs) == keys and len(keys) >= 2

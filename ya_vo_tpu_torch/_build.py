@@ -36,12 +36,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
-KERNELS = ("fast_score", "fast_select", "hamming", "lk_level", "pose_gn")
+KERNELS = ("fast_score", "fast_select", "hamming", "lk_level", "pose_gn",
+           "window_gn")
 # each wrapper's kernel function, as the profiler names its device events
 DEVICE_NAMES = {"fast_score": "fast_score_kernel",
                 "fast_select": "fast_select_kernel",
                 "hamming": "hamming_kernel", "lk_level": "lk_pyramid_kernel",
-                "pose_gn": "pose_gn_kernel"}
+                "pose_gn": "pose_gn_kernel", "window_gn": "window_gn_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 REPLAYS = {"graphs": 0}
@@ -85,7 +86,17 @@ _SIGNATURES = {
                      _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     # the blocks of pose_gn's cluster (no arguments)
     "yavo_pose_gn_cluster_size": [],
+    # poses, pose_valid, landmarks, lm_valid, obs_uv, obs_valid, order,
+    # offsets, W, O, L, iters, n_fixed, fx, fy, cx, cy, huber_delta,
+    # damping, rel_tol, prior_weight, out_poses, out_landmarks,
+    # out_cost_initial, out_cost_final, out_n_obs, out_iters, workspace,
+    # stream
+    "yavo_window_gn": [_P] * 8 + [_I] * 5 + [_F] * 8 + [_P] * 8,
+    # W, L: window_gn's workspace bytes
+    "yavo_window_gn_workspace": [_I, _I],
 }
+# the functions that return something else than an error code
+_RESTYPES = {"yavo_window_gn_workspace": ctypes.c_longlong}
 
 _lib = None
 
@@ -181,7 +192,7 @@ def load_library(path: Path) -> ctypes.CDLL:
         if not hasattr(lib, fn):
             continue
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
     return lib
 
 

@@ -10,37 +10,37 @@ damping, an optional trust-region prior on the poses, per-landmark and
 global step acceptance, and an early exit once an iteration's relative cost
 decrease is at or below `rel_tol`.
 
-Two choices differ from the JAX module's form, not its results:
+On the card `solve_window` is one launch of K5 (`csrc/window_gn.cu`
+through `ba/window_cuda.py`): the whole loop, its early exit taken on the
+device, as the JAX package's `lax.while_loop` takes it, with no host read
+between the problem's upload and the result. Each landmark's observations
+reach it as a CSR layout (`csr`: a stable sort of the landmark ids and
+each landmark's offset, made without a host read). A CPU tensor takes
+`solve_window_plain`, the plain version.
+
+The plain version's two choices differ from the JAX module's form, not its
+results:
 - The per-landmark sums (JAX `segment_sum`, an atomic scatter-add on a
   GPU) are a gather into a [L, M] layout of each landmark's observations,
   built once a solve by a stable sort of the (fixed) landmark ids, then a
-  sum over M. The card's summation order is then the same in every run, so
-  a solve is bit-reproducible.
+  sum over M (`segments`, one host read for M). The summation order is
+  then the same in every run, so a solve is bit-reproducible.
 - The early exit reads the iteration's cost improvement on the host, one
   small read an iteration (at most `iters`), so a converged window runs no
   further iterations; the iterates are the JAX while-loop's.
 
 The three-operand contractions of the reduced system are grouped as
 (Wpl Hll^-1) first, then one product over the landmark axis.
-
-`SolveGraphs` runs `solve_window` on the card as CUDA graphs: the solve's
-start, one GN iteration and its end, each captured once for each landmark
-layout width M (the most observations of one landmark, at most the
-window's keyframes) and replayed, with the early exit still read on the
-host after each iteration; bit-equal to `solve_window`, with the host
-issuing one replay an iteration where the eager solve issues each of the
-iteration's kernels.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ya_vo_tpu_torch import _build
+from ya_vo_tpu_torch.ba import window_cuda
 from ya_vo_tpu_torch.core import lie
 from ya_vo_tpu_torch.core.camera import Camera
 
@@ -82,7 +82,8 @@ class BAResult(NamedTuple):
     cost_initial: torch.Tensor
     cost_final: torch.Tensor
     n_obs: torch.Tensor
-    n_iters: int             # GN iterations run (the early exit's count)
+    n_iters: object          # GN iterations run (the early exit's count):
+                             # an int, a device int32 scalar from K5
 
 
 class Segments(NamedTuple):
@@ -113,6 +114,28 @@ def segments(obs_lm: torch.Tensor, n_landmarks: int) -> Segments:
     idx = idx.index_put((sk, rank), order)[:L]
     kf = torch.where(idx < N, idx // O, W)
     return Segments(idx, kf)
+
+
+class Csr(NamedTuple):
+    """Each landmark's observations for K5: `order` [W*O] the flat
+    observation indices sorted by landmark id (stable: ascending flat order
+    within a landmark; slots without a landmark last), `offsets` [L + 1]
+    where each landmark's run starts (landmark l's observations are
+    order[offsets[l]:offsets[l + 1]])."""
+    order: torch.Tensor
+    offsets: torch.Tensor
+
+
+def csr(obs_lm: torch.Tensor, n_landmarks: int) -> Csr:
+    """The CSR layout of `obs_lm` [W, O] over `n_landmarks` landmarks, with
+    no host read: a stable sort and a search of the sorted ids."""
+    L = n_landmarks
+    key = obs_lm.reshape(-1)
+    key = torch.where(key >= 0, key, L)              # the empty slots last
+    order = torch.argsort(key, stable=True)
+    offsets = torch.searchsorted(
+        key[order], torch.arange(L + 1, dtype=key.dtype, device=key.device))
+    return Csr(order, offsets)
 
 
 def _segment_sum(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
@@ -311,8 +334,25 @@ def solve_window(prob: BAProblem, cam: Camera, *, iters: int = 8,
     """Run up to `iters` damped GN steps on the window problem; stop once
     an iteration's relative cost decrease is at or below `rel_tol`.
     `pose_prior_weight` w adds the trust region w/2 ||log(T T_init^-1)||^2
-    on every pose (0 disables). Runs where the problem's tensors live; on
-    the card, TF32 must be off (the frontend turns it off)."""
+    on every pose (0 disables). On CUDA tensors one launch of K5 on the
+    current stream, with no host read (`n_iters` a device scalar); on the
+    CPU the plain version."""
+    kw = dict(iters=iters, huber_delta=huber_delta, damping=damping,
+              n_fixed_poses=n_fixed_poses, rel_tol=rel_tol,
+              pose_prior_weight=pose_prior_weight)
+    if prob.poses.device.type == "cpu":
+        return solve_window_plain(prob, cam, **kw)
+    layout = csr(prob.obs_lm, prob.landmarks.shape[0])
+    return BAResult(*window_cuda.solve(prob, cam, layout, **kw))
+
+
+def solve_window_plain(prob: BAProblem, cam: Camera, *, iters: int = 8,
+                       huber_delta: float = 2.4477, damping: float = 1e-4,
+                       n_fixed_poses: int = 1, rel_tol: float = 1e-3,
+                       pose_prior_weight: float = 0.0) -> BAResult:
+    """`solve_window`'s plain version, on either device: the loop above
+    with the exit read on the host after each iteration. On the card, TF32
+    must be off (the frontend turns it off)."""
     seg = segments(prob.obs_lm, prob.landmarks.shape[0])
     cost0, n_obs, init_inv = _solve_start(prob, cam, huber_delta, seg)
     kw = dict(huber_delta=huber_delta, damping=damping,
@@ -330,114 +370,3 @@ def solve_window(prob: BAProblem, cam: Camera, *, iters: int = 8,
     *_, cost1, _ = _obs_terms(poses, landmarks, prob, cam, huber_delta, seg)
     return BAResult(poses=poses, landmarks=landmarks, cost_initial=cost0,
                     cost_final=cost1, n_obs=n_obs, n_iters=n_iters)
-
-
-class _SolveGraph:
-    """The three graphs of one layout width and their static tensors."""
-
-    def __init__(self, prob: BAProblem, seg: Segments):
-        self.prob = BAProblem(*(torch.empty_like(t) for t in prob))
-        self.seg = Segments(*(torch.empty_like(t) for t in seg))
-        self.poses = torch.empty_like(prob.poses)
-        self.landmarks = torch.empty_like(prob.landmarks)
-        self.graphs = {}
-
-
-class SolveGraphs:
-    """`solve_window` with fixed settings, on the card, as CUDA graphs.
-
-    A call lays the problem out (`segments`, eager: its one host read gives
-    M), copies the problem and the layout into the static buffers of the
-    graphs of its shapes and M, replays the start, then one iteration at a time with
-    `solve_window`'s exit read on the host, then the end; the result is
-    copied out of the buffers. The first call at given shapes and M runs
-    `solve_window` eagerly (the warm-up) and then captures their graphs on a
-    side stream (`capture_error_mode="thread_local"`: the tracking thread
-    goes on meanwhile). Calls are serialised: the frontend's backend worker
-    and its own thread may both solve."""
-
-    def __init__(self, cam: Camera, *, iters: int = 8,
-                 huber_delta: float = 2.4477, damping: float = 1e-4,
-                 n_fixed_poses: int = 1, rel_tol: float = 1e-3,
-                 pose_prior_weight: float = 0.0):
-        self.cam = cam
-        self.iters, self.rel_tol = iters, rel_tol
-        self.kw = dict(huber_delta=huber_delta, damping=damping,
-                       n_fixed_poses=n_fixed_poses,
-                       pose_prior_weight=pose_prior_weight)
-        self._graphs = {}
-        self._lock = threading.Lock()
-        self._stream = None
-        self._done = None        # the last call's end, on its stream
-
-    def __call__(self, prob: BAProblem) -> BAResult:
-        if prob.poses.device.type != "cuda":
-            raise ValueError("SolveGraphs runs on the card; call "
-                             "solve_window on the CPU")
-        with self._lock:
-            if self._done is not None:
-                # the buffers are free once the last call's copies are out
-                torch.cuda.current_stream().wait_event(self._done)
-            seg = segments(prob.obs_lm, prob.landmarks.shape[0])
-            key = tuple(t.shape for t in (*prob, *seg))
-            g = self._graphs.get(key)
-            if g is None:
-                res = solve_window(prob, self.cam, iters=self.iters,
-                                   rel_tol=self.rel_tol, **self.kw)
-                self._graphs[key] = self._capture(prob, seg)
-                return res
-            return self._replay(g, prob, seg)
-
-    def _capture(self, prob: BAProblem, seg: Segments) -> _SolveGraph:
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(prob.poses.device)
-        g = _SolveGraph(prob, seg)
-        hd = self.kw["huber_delta"]
-
-        def start():
-            g.cost0, g.n_obs, g.init_inv = _solve_start(g.prob, self.cam,
-                                                        hd, g.seg)
-            g.poses.copy_(g.prob.poses)
-            g.landmarks.copy_(g.prob.landmarks)
-
-        def iteration():
-            poses, lms, improvement = _gn_iteration(
-                g.poses, g.landmarks, g.prob, self.cam, g.seg, g.init_inv,
-                **self.kw)
-            g.poses.copy_(poses)
-            g.landmarks.copy_(lms)
-            g.go_on = improvement > self.rel_tol
-
-        def end():
-            g.cost1 = _obs_terms(g.poses, g.landmarks, g.prob, self.cam, hd,
-                                 g.seg)[4]
-
-        for name, body in (("start", start), ("iteration", iteration),
-                           ("end", end)):
-            graph = torch.cuda.CUDAGraph()
-            with _build.capturing():
-                with torch.cuda.graph(graph, stream=self._stream,
-                                      capture_error_mode="thread_local"):
-                    body()
-            g.graphs[name] = graph
-        return g
-
-    def _replay(self, g: _SolveGraph, prob: BAProblem,
-                seg: Segments) -> BAResult:
-        for d, s in zip((*g.prob, *g.seg), (*prob, *seg)):
-            d.copy_(s)
-        g.graphs["start"].replay()
-        n_iters = 0
-        while n_iters < self.iters:
-            g.graphs["iteration"].replay()
-            n_iters += 1
-            if not bool(g.go_on):
-                break
-        g.graphs["end"].replay()
-        out = BAResult(poses=g.poses.clone(), landmarks=g.landmarks.clone(),
-                       cost_initial=g.cost0.clone(),
-                       cost_final=g.cost1.clone(), n_obs=g.n_obs.clone(),
-                       n_iters=n_iters)
-        self._done = torch.cuda.Event()
-        self._done.record()
-        return out

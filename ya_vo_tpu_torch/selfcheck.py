@@ -14,7 +14,10 @@ tex_size=1024, q_max=48, mip_levels=4, noise_sigma=0)` at 376x1241):
                     against its plain version (`check_hamming`);
   lk_level          K1 against its plain version (`check_lk`);
   pose_gn           K4 against its plain version on a seeded problem and
-                    on a real step's solve inputs (`pose_gn_parity`).
+                    on a real step's solve inputs (`pose_gn_parity`);
+  window_gn         K5 against JAX's recorded window solves
+                    (`check_window_gn_goldens`) and against its plain
+                    version on the full-width one (`window_gn_parity`).
 Parity only (the `*_parity` functions): no timing, so a profiler that
 drops events cannot fail the guard. Prints one JSON line a check and a
 summary line; exits 1 if any check failed or could not run, 2 without a
@@ -44,6 +47,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ya_vo_tpu_torch import _build
+from ya_vo_tpu_torch.ba import window
 from ya_vo_tpu_torch.config import VOConfig, with_option
 from ya_vo_tpu_torch.features import brief, fast, fast_cuda, hamming_cuda
 from ya_vo_tpu_torch.core import lie
@@ -1019,6 +1023,250 @@ def check_pose_gn_goldens(path=POSE_GOLDEN, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# K5, the window BA's GN loop, against JAX's recorded solves and against
+# the plain version
+# ---------------------------------------------------------------------------
+# tests/test_torch_ba.py's `compare`: poses within WINDOW_POSE_ATOL and
+# landmarks within WINDOW_LM_ATOL of the reference solve, or within twice
+# the reference's own distance to a float64 solve for as many iterations
+# where that is larger (monocular windows leave landmarks weakly
+# constrained along their rays, where float32 rounding moves every
+# solve); cost_initial within rtol WINDOW_COST_RTOL and cost_final no
+# worse than the reference's by more; every observation valid at the
+# reference solution within WINDOW_REPROJ_PX of its reprojection there;
+# equal valid observations and iterations. The frontend's windows hold
+# their poses to WINDOW_POSE_ATOL outright.
+WINDOW_POSE_ATOL, WINDOW_LM_ATOL = 1e-4, 1e-3
+WINDOW_COST_RTOL, WINDOW_REPROJ_PX = 1e-4, 5e-2
+# JAX's solves of window problems (tests/test_torch_window_gn.py records
+# them): test_torch_ba.py's two synthetic windows and the JAX frontend's
+# first two windows at the live settings, and one seeded problem at the
+# main path's width (W 8, O 2048, L 4096)
+WINDOW_DATA = (Path(__file__).resolve().parent.parent / "tests"
+               / "torch_data" / "window_gn")
+WINDOW_CASES = ("synthetic", "synthetic_noisy", "frontend0", "frontend1",
+                "full_width")
+WINDOW_STRICT_POSES = ("frontend0", "frontend1")
+WINDOW_OUTPUTS = ("poses", "landmarks", "cost_initial", "cost_final",
+                  "n_obs", "n_iters")
+# Operations of the window solve, counted from the plain version's
+# arithmetic: an observation's validity test (depth and flags), its cost
+# (transform 18, projection and residual 10, chi2 and Huber 8), its GN
+# terms (besides the cost: Jacobians 26, weights 18, Hll 27, bl 12, the
+# cross block 54, Hpp 108, bp 24); a landmark seen in m keyframes: its
+# sums and 3x3 inverse, (Wpl Hll^-1) 90 m, the m^2 6x6 blocks of S at 6
+# an entry, b_red 36 m, Hpp and bp's sums 42 m, back-substitution 36 m +
+# 20; a pose's exponential, logarithm and inverse
+WIN_OBS_TEST_OPS = 8
+WIN_OBS_COST_OPS = 18 + 10 + 8
+WIN_OBS_TERM_OPS = 26 + 18 + 27 + 12 + 54 + 108 + 24
+WIN_LM_OPS = 13 + 60 + 20
+WIN_POSE_OPS = 150
+
+
+def load_window_case(name: str, device="cuda", data=WINDOW_DATA):
+    """(prob, cam, kw, ref) of a recorded case: the problem on `device`,
+    the camera, the solve's keywords and JAX's solve as numpy arrays
+    (WINDOW_OUTPUTS, and `poses_to_f64` / `landmarks_to_f64`: its distances
+    to a float64 solve for as many iterations)."""
+    with np.load(Path(data) / f"{name}.npz") as z:
+        arrays = [torch.as_tensor(z[k]) for k in window.BAProblem._fields]
+        arrays[5] = arrays[5].to(torch.int64)
+        prob = window.BAProblem(*(a.to(device) for a in arrays))
+        cam = Camera.create(*z["cam"])
+        kw = json.loads(str(z["kw"]))
+        ref = {k: z["ref_" + k] for k in WINDOW_OUTPUTS}
+        ref.update(poses_to_f64=float(z["poses_to_f64"]),
+                   landmarks_to_f64=float(z["landmarks_to_f64"]))
+    return prob, cam, kw, ref
+
+
+def window_reprojections(prob, cam, poses, landmarks):
+    """Each observation slot's landmark projected at (poses, landmarks)."""
+    X = landmarks[prob.obs_lm.clamp(min=0)]
+    pc = torch.einsum("wij,woj->woi", poses[:, :3, :3], X) \
+        + poses[:, None, :3, 3]
+    return torch.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx,
+                        cam.fy * pc[..., 1] / pc[..., 2] + cam.cy], -1)
+
+
+def hold_window_solution(prob, cam, kw: dict, out, ref: dict,
+                         strict_poses: bool = False) -> dict:
+    """`out` (a BAResult) against the reference solve `ref` (WINDOW_OUTPUTS
+    as tensors or arrays, and its distances to a float64 solve) at the
+    tolerances above; raises RuntimeError past one. Returns the
+    differences."""
+    def as_np(t):
+        return t.detach().cpu().numpy() if torch.is_tensor(t) \
+            else np.asarray(t)
+
+    d = dict(n_iters=int(out.n_iters), ref_n_iters=int(ref["n_iters"]))
+    bad = []
+    if d["n_iters"] != d["ref_n_iters"]:
+        bad.append(f"{d['n_iters']} iterations, reference "
+                   f"{d['ref_n_iters']}")
+    for name, atol in (("poses", WINDOW_POSE_ATOL),
+                       ("landmarks", WINDOW_LM_ATOL)):
+        err = float(np.abs(as_np(getattr(out, name)).astype(np.float64)
+                           - as_np(ref[name])).max())
+        tol = atol if name == "poses" and strict_poses \
+            else max(atol, 2 * ref[name + "_to_f64"])
+        d[name], d[name + "_tol"] = err, tol
+        if not err <= tol:
+            bad.append(f"{name} off by {err} (tolerance {tol})")
+    c0, r0 = float(out.cost_initial), float(ref["cost_initial"])
+    c1, r1 = float(out.cost_final), float(ref["cost_final"])
+    d["cost_initial_rel"] = abs(c0 - r0) / max(abs(r0), 1e-30)
+    d["cost_final"], d["ref_cost_final"] = c1, r1
+    if not d["cost_initial_rel"] <= WINDOW_COST_RTOL:
+        bad.append(f"cost_initial {c0}, reference {r0}")
+    if not c1 <= r1 * (1 + WINDOW_COST_RTOL):
+        bad.append(f"cost_final {c1}, reference {r1}")
+    d["n_obs"] = int(out.n_obs)
+    if d["n_obs"] != int(ref["n_obs"]):
+        bad.append(f"{d['n_obs']} observations, reference {int(ref['n_obs'])}")
+    dev = prob.poses.device
+    ref_poses = torch.as_tensor(as_np(ref["poses"]), device=dev)
+    ref_lms = torch.as_tensor(as_np(ref["landmarks"]), device=dev)
+    seg = window.segments(prob.obs_lm, prob.landmarks.shape[0])
+    valid = window._obs_terms(ref_poses, ref_lms, prob, cam,
+                              kw["huber_delta"], seg)[-1]
+    uv = window_reprojections(prob, cam, out.poses, out.landmarks)
+    uv_ref = window_reprojections(prob, cam, ref_poses, ref_lms)
+    d["reproj_px"] = float((uv - uv_ref).norm(dim=-1)[valid].max()) \
+        if bool(valid.any()) else 0.0
+    if not d["reproj_px"] <= WINDOW_REPROJ_PX:
+        bad.append(f"reprojections off by {d['reproj_px']} px")
+    check(not bad, "window_gn: " + "; ".join(bad))
+    return d
+
+
+def _as_float64(prob):
+    return window.BAProblem(*(t.double() if t.is_floating_point() else t
+                              for t in prob))
+
+
+def plain_reference(prob, cam, **kw) -> dict:
+    """`solve_window_plain`'s solve of `prob` as a reference for
+    `hold_window_solution`, with its distances to the float64 plain solve
+    for as many iterations."""
+    p = window.solve_window_plain(prob, cam, **kw)
+    exact = window.solve_window_plain(
+        _as_float64(prob), cam, **dict(kw, iters=p.n_iters, rel_tol=-1.0))
+    return dict(poses=p.poses, landmarks=p.landmarks,
+                cost_initial=p.cost_initial, cost_final=p.cost_final,
+                n_obs=p.n_obs, n_iters=p.n_iters,
+                poses_to_f64=(p.poses.double() - exact.poses).abs()
+                .max().item(),
+                landmarks_to_f64=(p.landmarks.double() - exact.landmarks)
+                .abs().max().item())
+
+
+def window_gn_parity(prob, cam, **kw) -> dict:
+    """K5 (`solve_window` on the card) against `solve_window_plain` on the
+    same problem at `hold_window_solution`'s tolerances, and two K5 calls
+    bit for bit. Returns the differences, both versions' iterations and
+    K5's launches a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = _build.LAUNCHES["window_gn"]
+    a = window.solve_window(prob, cam, **kw)
+    b = window.solve_window(prob, cam, **kw)
+    launches = (_build.LAUNCHES["window_gn"] - before) / 2
+    if prob.poses.is_cuda:
+        sync_within("window_gn")
+    check(all(bits_equal(x, y) for x, y in zip(a[:5], b[:5]))
+          and int(a.n_iters) == int(b.n_iters),
+          "window_gn: two calls on the same problem differ")
+    d = hold_window_solution(prob, cam, kw, a, plain_reference(prob, cam,
+                                                               **kw))
+    return dict(d, max_abs_err=max(d["poses"], d["landmarks"]),
+                launches_a_call=launches,
+                n_landmarks=int(prob.lm_valid.sum()),
+                shape=dict(W=prob.poses.shape[0], O=prob.obs_lm.shape[1],
+                           L=prob.landmarks.shape[0]))
+
+
+def window_gn_work(prob, cam, n_iters: int, huber_delta: float) -> dict:
+    """What K5's bound counts on this problem for `n_iters` iterations:
+    bytes (the inputs read once, the outputs written once) and operations
+    (WIN_* above, over the observations with a landmark, those valid at
+    the input and each landmark's keyframes with a valid observation)."""
+    W, O = prob.obs_lm.shape
+    L = prob.landmarks.shape[0]
+    seg = window.segments(prob.obs_lm, L)
+    valid = window._obs_terms(prob.poses, prob.landmarks, prob, cam,
+                              huber_delta, seg)[-1].cpu().numpy()
+    lm = prob.obs_lm.cpu().numpy()
+    n_in = int((lm >= 0).sum())
+    n_valid = int(valid.sum())
+    kf = np.broadcast_to(np.arange(W)[:, None], (W, O))
+    seen = np.zeros((L, W), bool)
+    seen[lm[valid], kf[valid]] = True
+    m = seen.sum(1).astype(np.int64)
+    n = 6 * W
+    lu = n * n * 3 + sum((n - k - 1) * (n - k) * 3 for k in range(n))
+    per_iter = (3 * n_in * WIN_OBS_TEST_OPS
+                + n_valid * (WIN_OBS_TERM_OPS + 3 * WIN_OBS_COST_OPS)
+                + int((m > 0).sum()) * WIN_LM_OPS
+                + int((90 * m + 216 * m * m + 36 * m + 42 * m + 36 * m)
+                      .sum())
+                + lu + W * 3 * WIN_POSE_OPS)
+    n_ops = n_iters * per_iter + 2 * (n_in * WIN_OBS_TEST_OPS
+                                      + n_valid * WIN_OBS_COST_OPS) \
+        + W * WIN_POSE_OPS
+    n_bytes = (W * (64 + 1) + L * (12 + 1) + W * O * (8 + 8 + 1)
+               + W * 64 + L * 12 + 4 + 4 + 8 + 4)
+    return dict(n_bytes=n_bytes, n_ops=n_ops, observations=n_in,
+                valid_observations=n_valid,
+                landmarks_seen=int((m > 0).sum()),
+                mean_keyframes_a_landmark=float(m[m > 0].mean())
+                if (m > 0).any() else 0.0, iterations=n_iters)
+
+
+def check_window_gn(prob, cam, **kw) -> dict:
+    """`window_gn_parity`, then K5's costs on this problem: its own device
+    ms, the whole solve's device ms (the layout's sort and search too) and
+    call ms, launches a call, the plain version's ms, and the bound for
+    the iterations K5 ran with its share of K5's device ms."""
+    out = window_gn_parity(prob, cam, **kw)
+
+    def solve():
+        return window.solve_window(prob, cam, **kw)
+
+    work = window_gn_work(prob, cam, out["n_iters"], kw["huber_delta"])
+    bound_ms, bound_by = bound(work["n_bytes"], work["n_ops"], F32_OPS_S)
+    k5_ms = device_ms(solve, "window_gn_kernel", launches_per_call=1)
+    return dict(out, work=work, device_ms=k5_ms,
+                solve_device_ms=device_ms(solve),
+                call_ms=time_ms(solve),
+                plain_ms=time_ms(lambda: window.solve_window_plain(
+                    prob, cam, **kw), reps=3),
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / k5_ms, library_ms=None)
+
+
+def check_window_gn_goldens(device="cuda", cases=WINDOW_CASES,
+                            data=WINDOW_DATA) -> dict:
+    """`solve_window` on `device` (K5 on the card) against JAX's recorded
+    solve of each case at `hold_window_solution`'s tolerances, one K5
+    launch a solve on the card."""
+    out = {}
+    for name in cases:
+        prob, cam, kw, ref = load_window_case(name, device, data)
+        before = _build.LAUNCHES["window_gn"]
+        res = window.solve_window(prob, cam, **kw)
+        launches = _build.LAUNCHES["window_gn"] - before
+        if prob.poses.is_cuda:
+            sync_within(f"window_gn golden {name}")
+        check(launches == (0 if device == "cpu" else 1),
+              f"window_gn golden {name}: {launches} launches")
+        out[name] = hold_window_solution(
+            prob, cam, kw, res, ref,
+            strict_poses=name in WINDOW_STRICT_POSES)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the renderer, BRIEF and K3 against numpy
 # ---------------------------------------------------------------------------
 def parity_sequence(device="cuda") -> scene.TexturedSequence:
@@ -1190,6 +1438,13 @@ def main() -> int:
                     textured_step=pose_gn_parity(*step, **gn))
 
     run("pose_gn", pose_gn)
+
+    def window_gn():
+        prob, cam, kw, _ = load_window_case("full_width")
+        return dict(goldens=check_window_gn_goldens(),
+                    full_width=window_gn_parity(prob, cam, **kw))
+
+    run("window_gn", window_gn)
     n_fail = sum(not r["ok"] for r in results)
     print(json.dumps({"selfcheck": "PASS" if n_fail == 0 else "FAIL",
                       "n_checks": len(results), "n_fail": n_fail}),

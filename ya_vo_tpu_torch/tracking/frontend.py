@@ -22,11 +22,11 @@ On the card the fused step is the JAX frontend's two compiled programs,
 `step` and `step_pre`, as two CUDA graphs (`step_graph.StepGraphs`, fresh
 and redo), captured at the first tracking dispatch and replayed on every
 later one, bit-equal to the eager step; the frame number and the free
-landmark capacity reach the step as device scalars. The window solve
-replays graphs too (`ba_window.SolveGraphs`). `Frontend(...,
-step_graphs=False)` runs the eager step and solves instead, for
-comparisons. On the CPU the runner handles its buffers as on the card,
-with the body run in place of a replay.
+landmark capacity reach the step as device scalars. A window solve on
+the card is one launch of K5 (`ba_window.solve_window`), its loop's exit
+taken on the device. `Frontend(..., step_graphs=False)` runs the eager
+step instead, for comparisons. On the CPU the runner handles its buffers
+as on the card, with the body run in place of a replay.
 
 Tracking state lives as tensors on `device`. Each frame's record is copied
 with `non_blocking` copies into pinned host memory behind a CUDA event, so
@@ -227,8 +227,7 @@ class Frontend:
     def __init__(self, config: VOConfig, cam: Camera, device=None,
                  step_graphs: bool = True):
         """`step_graphs=False` runs every tracking dispatch as the eager
-        step and every window solve as the eager `solve_window` (on the
-        card, for comparisons with the graphs' replays)."""
+        step (on the card, for comparisons with the graphs' replays)."""
         _check_supported(config)
         # geometry runs in true float32 on the card
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -336,16 +335,12 @@ class Frontend:
         self._state_dirty = False
         self._pending_q: deque = deque()
         # the fused step's fresh and redo graphs (captured at the first
-        # tracking dispatch), or None: the eager step; on the card the
-        # window solve's graphs too (`ba_window.SolveGraphs`)
+        # tracking dispatch), or None: the eager step
         self._graphs = step_graph.StepGraphs(self) if step_graphs else None
         bc = config.ba
         self._window_kw = dict(iters=bc.iters, huber_delta=bc.huber_delta,
                                damping=bc.damping, n_fixed_poses=2,
                                pose_prior_weight=bc.pose_prior_weight)
-        self._solve_graphs = (
-            ba_window.SolveGraphs(cam, **self._window_kw)
-            if step_graphs and self.device.type == "cuda" else None)
         # distributed backend: the window's landmark axis sharded over the
         # mesh (BAConfig.distributed); (solve_fn, mesh) or None
         self._dist_ba = None
@@ -897,16 +892,13 @@ class Frontend:
 
     def _solve(self, prob):
         """One window solve on the current stream (sharded over the mesh
-        when `_dist_ba` is built; else on the card as the window solve's
-        graphs, unless `step_graphs=False`), read back to numpy: ((poses,
-        landmarks), wall ms)."""
+        when `_dist_ba` is built; else `solve_window`: K5 on the card),
+        read back to numpy: ((poses, landmarks), wall ms)."""
         t0 = time.perf_counter()
         if self._dist_ba is not None:
             poses, lms = self._solve_window_distributed(prob)
         else:
-            res = (self._solve_graphs(prob) if self._solve_graphs is not None
-                   else ba_window.solve_window(prob, self.cam,
-                                               **self._window_kw))
+            res = ba_window.solve_window(prob, self.cam, **self._window_kw)
             poses, lms = res.poses, res.landmarks
         out = (self._np(poses), self._np(lms))
         return out, (time.perf_counter() - t0) * 1e3
@@ -957,10 +949,10 @@ class Frontend:
             return self._solve(prob)
 
     def _precompile_window_ba(self) -> None:
-        """Warm the solver (the sharded one when built) on the backend (its
-        first cuBLAS/cuSOLVER calls on the backend stream) with an
-        all-invalid problem of the session's window shapes; runs on the
-        worker at construction."""
+        """Warm the solver (the sharded one when built) on the backend (on
+        the card the kernel library's load and K5's first launch on the
+        backend stream) with an all-invalid problem of the session's window
+        shapes; runs on the worker at construction."""
         try:
             bc = self.cfg.ba
             W, L = self.cfg.map.window_size, bc.max_window_landmarks
