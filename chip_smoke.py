@@ -42,7 +42,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and at a recorded solve that runs to the 40-iteration cap. Then K5,
      the window BA's GN loop in one launch, against JAX's recorded solve
      of every window of tests/torch_data/window_gn (tests/test_torch_ba.py's
-     tolerances, JAX's iterations, one launch a solve), and against its
+     tolerances, JAX's iterations, one launch a solve), bit for bit
+     against the outputs recorded from the first K5 (one cooperative
+     launch) on every case of tests/torch_data/window_gn/k5_bits.npz
+     (`selfcheck.check_window_gn_bits`, two calls each), and against its
      plain version on the full-width one (W 8, O 2048, L 4096): both
      versions' iterations, device and call ms, launches a call and bound.
      The checks and their tolerances are `ya_vo_tpu_torch/selfcheck.py`'s;
@@ -1528,10 +1531,13 @@ def main() -> int:
             "pose_gn_kernel", launches_per_call=1), card=card)), flush=True)
     del capped
     # K5 against JAX's recorded solves (tests/torch_data/window_gn, with
-    # JAX's iterations) and against its plain version on the full-width one
+    # JAX's iterations), bit for bit against its recorded outputs
+    # (k5_bits.npz, two calls each), and against its plain version on the
+    # full-width one
     wprob, wcam, wkw, _ = sc.load_window_case("full_width")
     print("kernel window_gn: " + json.dumps(dict(
         goldens=sc.check_window_gn_goldens(),
+        bits=sc.check_window_gn_bits(),
         full_width=sc.check_window_gn(wprob, wcam, **wkw), card=card)),
         flush=True)
     del wprob

@@ -1,6 +1,7 @@
 """K5 (`ya_vo_tpu_torch/csrc/window_gn.cu`, the window BA's GN loop) on
-the CPU: its goldens against JAX, the plain version held to them, its CSR
-layout, and `solve_window`'s dispatch.
+the CPU: its goldens against JAX, the plain version held to them, the
+outputs K5 recorded on the card (k5_bits.npz) held to JAX's goldens and
+to the plain version, its CSR layout, and `solve_window`'s dispatch.
 
 The goldens (tests/torch_data/window_gn/<case>.npz) hold a window problem,
 the solve's settings, JAX's solve of it (`ya_vo_tpu.ba.window._solve_window`
@@ -174,6 +175,66 @@ def test_plain_version_matches_golden(name):
     d = sc.hold_window_solution(prob, cam, kw, out, ref,
                                 strict_poses=name in sc.WINDOW_STRICT_POSES)
     print(f"window_gn golden {name}: {json.dumps(d)}")
+
+
+def hold_recorded_solve(prob, cam, kw: dict, out) -> dict:
+    """A recorded K5 output `out` of a window without a JAX golden against
+    the CPU plain version's solve: equal iterations and observations,
+    cost_initial within WINDOW_COST_RTOL, poses within `hold_window_
+    solution`'s pose tolerance of the plain solve; the recorded cost_final
+    within WINDOW_COST_RTOL of the float64 cost of the recorded state (one
+    consistent state), and that cost no worse than the float64 GN solve's
+    for as many iterations by more than WINDOW_COST_RTOL. Landmarks are
+    not held position by position: at pose noise 0.02 both float32
+    solves scatter along weakly constrained rays, and on some of these
+    windows the two land farther apart than twice the plain version's own
+    distance to float64 (the plain version's distance itself changes with
+    the CPU's thread count)."""
+    ref = sc.plain_reference(prob, cam, **kw)
+    p64 = sc._as_float64(prob)
+    exact = twindow.solve_window_plain(
+        p64, cam, **dict(kw, iters=ref["n_iters"], rel_tol=-1.0))
+    seg = twindow.segments(prob.obs_lm, prob.landmarks.shape[0])
+    c64 = float(twindow._obs_terms(out.poses.double(),
+                                   out.landmarks.double(), p64, cam,
+                                   kw["huber_delta"], seg)[4])
+    rtol = sc.WINDOW_COST_RTOL
+    d = dict(n_iters=out.n_iters, ref_n_iters=int(ref["n_iters"]),
+             poses=float((out.poses.double() - ref["poses"].double())
+                         .abs().max()),
+             poses_tol=max(sc.WINDOW_POSE_ATOL, 2 * ref["poses_to_f64"]),
+             cost_final=float(out.cost_final), cost_final_f64=c64,
+             exact_cost_final=float(exact.cost_final))
+    assert d["n_iters"] == d["ref_n_iters"]
+    assert int(out.n_obs) == int(ref["n_obs"])
+    r0 = float(ref["cost_initial"])
+    assert abs(float(out.cost_initial) - r0) <= rtol * abs(r0)
+    assert d["poses"] <= d["poses_tol"]
+    assert abs(d["cost_final"] - c64) <= rtol * c64
+    assert c64 <= d["exact_cost_final"] * (1 + rtol)
+    return d
+
+
+@pytest.mark.parametrize("key", sc.window_bits_keys())
+def test_recorded_k5_bits_are_sound(key):
+    """Each output the first K5 recorded in k5_bits.npz (`port_window_gn.py
+    record`, on the card): on the five goldens against JAX's recorded solve
+    at `hold_window_solution`'s tolerances, elsewhere against the plain
+    version's solve on the CPU (`hold_recorded_solve`); the iterations
+    equal in both. The inputs made here are the recorded ones (their
+    digest)."""
+    with np.load(sc.WINDOW_BITS) as z:
+        out = sc.window_result_from_bits(z, key)
+        prob, cam, kw = sc.window_bits_case(key, "cpu", z)
+        assert sc.window_inputs_digest(prob, cam, kw) == str(
+            z[f"{key}:digest"])
+    if key in sc.WINDOW_CASES:
+        d = sc.hold_window_solution(
+            prob, cam, kw, out, sc.load_window_case(key, "cpu")[3],
+            strict_poses=key in sc.WINDOW_STRICT_POSES)
+    else:
+        d = hold_recorded_solve(prob, cam, kw, out)
+    print(f"k5 bits {key}: {json.dumps(d)}")
 
 
 @pytest.mark.parametrize("name", sc.WINDOW_CASES)

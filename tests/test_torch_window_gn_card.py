@@ -14,8 +14,9 @@ tests/test_torch_window_gn.py) with JAX's iteration count, and to
 `solve_window_plain` on the same CUDA problem; two calls give the same
 bits; no host read happens between the problem's upload and the result
 (sync debug mode "error"); W = 16, W = 2, one pinned pose and zero
-iterations run; and a `VOConfig()` frontend solves its
-windows through one K5 launch each.
+iterations run; K5 gives, bit for bit, the outputs the first K5 recorded
+on every case of tests/torch_data/window_gn/k5_bits.npz; and a
+`VOConfig()` frontend solves its windows through one K5 launch each.
 """
 
 import json
@@ -69,29 +70,8 @@ def test_k5_reads_nothing_back_inside_a_solve(cuda):
     assert int(res.n_iters) == int(ref["n_iters"])
 
 
-def _shape_problem(name: str, device):
-    """(problem, camera, keywords) of `test_k5_other_shapes`' cases."""
-    kw = dict(iters=8, huber_delta=2.4477, damping=1e-4, rel_tol=1e-3)
-    if name.startswith("w16"):
-        prob = scaling_bench.window_problem(2048, 16, device=device)
-        prior = 100.0 if name == "w16_prior" else 0.0
-        return prob, synthetic.kitti_camera(), dict(
-            kw, n_fixed_poses=2, pose_prior_weight=prior)
-    if name == "frontend0_refine":
-        # global_refine's settings for a window of 2+ keyframes: two pinned
-        # poses, BAConfig's offline_pose_prior_weight
-        prob, cam, _, _ = sc.load_window_case("frontend0", device)
-        return prob, cam, dict(kw, n_fixed_poses=2, pose_prior_weight=10.0)
-    prob, cam, _, _ = sc.load_window_case("frontend1", device)
-    two = ba_window.BAProblem(
-        prob.poses[:2], prob.pose_valid[:2], prob.landmarks, prob.lm_valid,
-        prob.obs_uv[:2], prob.obs_lm[:2], prob.obs_valid[:2])
-    return two, cam, dict(kw, n_fixed_poses=1, pose_prior_weight=100.0)
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["w16_prior", "w16_no_prior",
-                                  "frontend0_refine", "frontend1_w2"])
+@pytest.mark.parametrize("name", sc.WINDOW_SHAPES)
 def test_k5_other_shapes(cuda, name):
     """K5 against the plain version at W = 16 (`scaling_bench`'s window,
     two pinned poses, with and without the prior), with global_refine's
@@ -103,9 +83,19 @@ def test_k5_other_shapes(cuda, name):
     these tolerances, by landmark units with global_refine's prior of 10
     (the reduced system's condition number reaches 2e7; PERF.md section
     7)."""
-    prob, cam, kw = _shape_problem(name, cuda)
+    prob, cam, kw = sc.window_shape_problem(name, cuda)
     out = sc.window_gn_parity(prob, cam, **kw)
     print(f"window_gn {name}: " + json.dumps(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", sc.window_bits_keys())
+def test_k5_matches_its_recorded_bits(cuda, key):
+    """K5 bit for bit against the first K5's outputs on every recorded
+    case of tests/torch_data/window_gn/k5_bits.npz (`port_window_gn.py
+    record`), two calls each, one launch a call."""
+    out = sc.check_window_gn_bits(keys=(key,))
+    assert out == dict(cases=1, differing=0, launches=2)
 
 
 @pytest.mark.cuda

@@ -44,34 +44,46 @@
 // float32 peak, so the bound is set by operations. The kernel is far from
 // it: an iteration is a chain of dependent phases (the landmarks' terms,
 // the system's sums across blocks, a 48-step LU, back-substitution and the
-// costs, the exit) joined by three grid-wide barriers, so its time is that
-// chain's latency times the iterations the data needs.
+// costs, the exit), so its time is that chain's latency times the
+// iterations the data needs. The design shortens each link of the chain
+// and keeps every sum's order, so its bits are those of the first K5 (a
+// grid of 256-thread blocks, a block-wide LU), which
+// tests/torch_data/window_gn/k5_bits.npz records.
 //
-// The design: one cooperative launch of as many co-resident blocks of 256
-// threads as the landmarks need (at most what the card holds at once),
-// landmark-major. The landmarks are cut into chunks of 32 (4 batches of 8,
-// one landmark a warp), chunk c taken by block c mod gridDim.x; a landmark
-// stays with its warp through every phase, so only that warp ever reads or
-// writes its position.
+// The design: one cooperative launch of as many co-resident blocks of 512
+// threads (one a multiprocessor: 128 registers a thread) as the landmarks
+// need, landmark-major. The landmarks are cut into chunks of 32 (2 batches
+// of 16, one landmark a warp), chunk c taken by block c mod gridDim.x; a
+// landmark stays with its warp through every phase, so only that warp ever
+// reads or writes its position.
 //  A. Each warp takes one landmark a batch: its observations (a CSR run,
-//     ascending flat order) in rounds of 32 lanes, their count of valid
-//     ones, their terms, and the landmark's sums: Hll, bl and its cost by
+//     ascending flat order) in rounds of 32 lanes, their terms and, in the
+//     same pass, their count of valid ones (with fewer than 2 the terms
+//     are dropped), and the landmark's sums: Hll, bl and its cost by
 //     a butterfly over lanes, and per keyframe Wpl, Hpp's and bp's shares
 //     by a segmented scan over a keyframe's run (a landmark seen twice in
 //     one keyframe) into shared memory; then Hll^-1 and A = Wpl Hll^-1.
-//     After each batch, each thread adds the batch's 8 landmarks, in
-//     order, into the block's partial sums of the entries it owns (Hpp,
-//     bp, the S blocks Wpl Hll^-1 Wpl^T, the b_red terms, the cost); after
-//     a chunk the partials go to global memory, one column a chunk.
+//     After both batches (a buffer a landmark of the chunk) the block adds
+//     the chunk's 32 landmarks, in order, into its partial sums: a thread
+//     takes a 3x3 tile of S_off (one keyframe pair; its 9 sums in
+//     registers, each landmark's 3 A rows and 3 Wpl columns read once) or
+//     one entry of Hpp, bp, b_red's terms or the cost, and writes its sums
+//     to global memory, one column a chunk.
 //  Grid barrier. Each warp of the grid adds an entry's chunk partials in a
 //     fixed order (lane j takes chunks j, j + 32, ..., then a butterfly).
 //  Grid barrier.
 //  B. Every block assembles the 6W x 6W system from the totals in its
-//     shared memory and solves it itself, with the same bits in every block
-//     (the same code on the same data), so no broadcast is needed; then the
-//     step's poses.
-//  C. Each warp back-substitutes its landmarks and evaluates lmA and lmB;
-//     the chunk's sum of min(lmA, lmB) goes to global memory.
+//     shared memory, and its warp 0 alone solves it (`lu_solve_warp`), with
+//     __syncwarp as the only sync inside, while the other warps wait at one
+//     block barrier; the same bits in every block (the same code on the
+//     same data), so no broadcast is needed; then the step's poses. A
+//     block-wide LU (the first kernel's) takes 3 block barriers a step.
+//  C. Each warp back-substitutes its landmarks and evaluates lmA and lmB
+//     in one pass over the landmark's observations; the chunk's sum of
+//     min(lmA, lmB) goes to global memory. The last warp first takes the
+//     prior's deviations of the step's poses, which D needs (the poses'
+//     own are taken once, at the first iteration, and an accepted step
+//     hands its deviations on).
 //  Grid barrier.
 //  D. Every block adds the chunks' sums, decides the step and the exit,
 //     and applies the step (the poses in its shared memory; each warp its
@@ -79,24 +91,55 @@
 // No float atomics: every sum is taken in a fixed order (a lane's terms in
 // round order, then a butterfly; a chunk's landmarks in order; the chunks
 // as above), and the chunk partition depends on L alone, so two calls give
-// the same bits on any card. The build's -fmad=false makes every multiply
-// and add round on its own, as in the plain version's elementwise terms;
-// the 6W x 6W LU's updates and back-substitution and the products summed
-// into S and b_red are explicit fused multiply-adds (fmaf), as LAPACK's
-// getrf and a GEMM compute them for the plain version and JAX. Where a
-// window's last improvement sits near rel_tol, its iteration count follows
-// such rounding in every float32 version (PERF.md). The landmark cost that
-// enters cost_prev and the one that enters mixed are summed by the same
-// code in the same order, so a step that changes nothing is not taken.
+// the same bits on any card. Which thread takes a sum, and when, does not
+// change it. The build's -fmad=false makes every multiply and add round on
+// its own, as in the plain version's elementwise terms; the 6W x 6W LU's
+// updates and back-substitution and the products summed into S and b_red
+// are explicit fused multiply-adds (fmaf), as LAPACK's getrf and a GEMM
+// compute them for the plain version and JAX. Where a window's last
+// improvement sits near rel_tol, its iteration count follows such rounding
+// in every float32 version (PERF.md). The landmark cost that enters
+// cost_prev and the one that enters mixed are summed by the same code in
+// the same order, so a step that changes nothing is not taken.
+//
+// Not used, and why: the tensor cores (wgmma takes no float32 input, the
+// geometry stays in float32 with TF32 off, and splitting into TF32 parts
+// would change the bits; the products are 6x3 blocks besides); TMA (the
+// observations are a gather through the CSR order, not a tile); a single
+// thread-block cluster in place of the grid (the grid barriers and the
+// partials' round trip are a small share of the time, PERF.md, while 16
+// blocks would take 8 times the landmarks a warp in phases A and C).
+// The LU's matrix stays in shared memory rather than registers: rows held
+// in registers need every step unrolled (static indices), and the row
+// exchange then a select over every row, and with 512 threads a block a
+// thread has 128 registers; one warp's step is a chain of ~650 cycles
+// (the next pivot's reductions, the division, the first quad) besides its
+// share of the update (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
 
+#ifdef YAVO_K5_PHASES
+// Built with -DYAVO_K5_PHASES (port_window_gn.py phases): at PHASE(i),
+// thread 0 of each block adds the clock64() cycles since its last mark to
+// k5_phase_cycles[block][i]; yavo_window_gn_phases reads and zeroes them.
+constexpr int PHASE_BLOCKS = 256, NPHASES = 12;
+__device__ unsigned long long k5_phase_cycles[PHASE_BLOCKS][NPHASES];
+__shared__ long long k5_phase_t;
+#define PHASE_INIT if (threadIdx.x == 0) k5_phase_t = clock64();
+#define PHASE(i) if (threadIdx.x == 0 && blockIdx.x < PHASE_BLOCKS) { \
+    const long long t_ = clock64(); \
+    k5_phase_cycles[blockIdx.x][i] += t_ - k5_phase_t; k5_phase_t = t_; }
+#else
+#define PHASE_INIT
+#define PHASE(i)
+#endif
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;                   // landmarks a partial sum
 constexpr int BATCHES = CHUNK / WARPS;      // one landmark a warp a batch
@@ -127,22 +170,32 @@ struct Outputs {
 };
 
 // Where each sum lives: the entries of the reduced system's sums (Hpp
-// [W][6][6], bp [W][6], S_off [6W][6W], b_off [6W], the cost), a warp's
-// landmark buffer in shared memory (bl, cost, then Wpl, A = Wpl Hll^-1,
-// Hpp's and bp's shares, each [W][...]) and a landmark's record in global
-// memory (Hll^-1, bl, Wpl).
+// [W][6][6], bp [W][6], S_off [6W][6W], b_off [6W], the cost), a
+// landmark's buffer in shared memory, one for each of a chunk's landmarks
+// (bl, cost, then Wpl, A = Wpl Hll^-1, Hpp's and bp's shares, each
+// [W][...]) and a landmark's record in global memory (Hll^-1, bl, Wpl).
 struct Layout {
-  int W, n, nchunks;
+  int W, n, ld, nchunks;
   int hpp, bp, soff, boff, cost, E;
   int wpl, a, lhpp, lbp, lmb;
   int lms;
   int pose_floats, unions;
 };
 
+// The row stride of the augmented n x (n + 1) system in shared memory: a
+// multiple of 4 floats (rows 16-byte aligned) with an odd number of
+// 16-byte quads, so 8 lanes reading 16 bytes each from 8 consecutive rows
+// touch 8 distinct groups of 4 banks.
+__host__ __device__ inline int system_ld(int n) {
+  const int ld = (n + 1 + 3) / 4 * 4;
+  return (ld / 4) % 2 ? ld : ld + 4;
+}
+
 __host__ __device__ inline Layout layout(int W, int L) {
   Layout g;
   g.W = W;
   g.n = 6 * W;
+  g.ld = system_ld(g.n);
   g.nchunks = L > 0 ? (L + CHUNK - 1) / CHUNK : 1;
   g.hpp = 0;
   g.bp = 36 * W;
@@ -156,10 +209,11 @@ __host__ __device__ inline Layout layout(int W, int L) {
   g.lbp = g.lhpp + 36 * W;
   g.lmb = g.lbp + 6 * W;
   g.lms = 12 + 18 * W;
-  // sT, sNew, sInv [W][16], sDev, sX [6W], rounded to 16 bytes
-  g.pose_floats = (3 * 16 * W + 2 * 6 * W + 3) / 4 * 4;
-  const int a_phase = g.E + WARPS * g.lmb;
-  const int b_phase = g.n * (g.n + 1);
+  // sT, sNew, sInv [W][16], two deviations and sX [6W], rounded to 16
+  // bytes
+  g.pose_floats = (3 * 16 * W + 3 * 6 * W + 3) / 4 * 4;
+  const int a_phase = CHUNK * g.lmb;
+  const int b_phase = g.n * g.ld;
   g.unions = a_phase > b_phase ? a_phase : b_phase;
   return g;
 }
@@ -402,22 +456,6 @@ __device__ __forceinline__ bool pretest(const Problem& p, const float* T,
          && depth(T + 16 * k, X0, X1, X2) > 1e-2f;
 }
 
-// The number of observations of the run that pass `pretest` (a warp).
-__device__ int count_valid(const Problem& p, const float* T, const Run& run,
-                           float X0, float X1, float X2, int lane) {
-  int cnt = 0;
-  for (long long base = run.beg; base < run.end; base += 32) {
-    const long long o = base + lane;
-    bool pre = false;
-    if (o < run.end) {
-      const long long f = p.order[o];
-      pre = pretest(p, T, f, (int)(f / p.O), X0, X1, X2, run.lmv);
-    }
-    cnt += __popc(__ballot_sync(FULL, pre));
-  }
-  return cnt;
-}
-
 // The projection of X into keyframe T: residual, camera-frame point and
 // the projection's Jacobian entries (a, c / b, d of J_proj's two rows).
 struct Proj {
@@ -443,33 +481,54 @@ __device__ __forceinline__ Proj project(const Problem& p, const float* T,
   return q;
 }
 
-// A landmark's robust cost at (T, X) and its valid observations (a warp;
-// every lane gets the same sum): the lanes' terms in round order, then a
-// butterfly.
-__device__ float landmark_cost(const Problem& p, const float* T,
-                               const Run& run, float X0, float X1, float X2,
-                               int lane, int* n_valid) {
-  const int cnt = count_valid(p, T, run, X0, X1, X2, lane);
-  const bool enough = cnt >= 2;
-  float c = 0.0f;
-  if (enough) {
-    for (long long base = run.beg; base < run.end; base += 32) {
-      const long long o = base + lane;
-      if (o < run.end) {
-        const long long f = p.order[o];
-        const int k = (int)(f / p.O);
-        if (pretest(p, T, f, k, X0, X1, X2, run.lmv)) {
-          const Proj q = project(p, T + 16 * k, X0, X1, X2,
-                                 p.obs_uv[2 * f], p.obs_uv[2 * f + 1]);
-          const float chi2 = q.r0 * q.r0 + q.r1 * q.r1;
-          const float nrm = sqrtf(chi2 < 1e-12f ? 1e-12f : chi2);
-          c += huber(chi2, nrm, p.huber_delta);
-        }
+// Observation (uo, vo)'s robust cost at the camera T and the point X.
+__device__ __forceinline__ float obs_cost(const Problem& p, const float* T,
+                                          const float* X, float uo,
+                                          float vo) {
+  const Proj q = project(p, T, X[0], X[1], X[2], uo, vo);
+  const float chi2 = q.r0 * q.r0 + q.r1 * q.r1;
+  return huber(chi2, sqrtf(chi2 < 1e-12f ? 1e-12f : chi2), p.huber_delta);
+}
+
+// The robust costs of one landmark at NX positions X[0..NX) under the same
+// poses (a warp; every lane gets the same sums), in one pass over its
+// observations: each position's count of valid observations and its
+// lanes' terms in round order, then a butterfly; a position with fewer
+// than 2 valid observations costs 0 (its terms are dropped). Its valid
+// observations go to n_valid[m] where given.
+template <int NX>
+__device__ void landmark_costs(const Problem& p, const float* T,
+                               const Run& run, const float (&X)[NX][3],
+                               int lane, float (&cost)[NX],
+                               int* n_valid = nullptr) {
+  int cnt[NX];
+  float c[NX];
+#pragma unroll
+  for (int m = 0; m < NX; ++m) { cnt[m] = 0; c[m] = 0.0f; }
+  for (long long base = run.beg; base < run.end; base += 32) {
+    const long long o = base + lane;
+    bool pre[NX];
+#pragma unroll
+    for (int m = 0; m < NX; ++m) pre[m] = false;
+    if (o < run.end) {
+      const long long f = p.order[o];
+      const int k = (int)(f / p.O);
+      const float uo = p.obs_uv[2 * f], vo = p.obs_uv[2 * f + 1];
+#pragma unroll
+      for (int m = 0; m < NX; ++m) {
+        pre[m] = pretest(p, T, f, k, X[m][0], X[m][1], X[m][2], run.lmv);
+        if (pre[m]) c[m] += obs_cost(p, T + 16 * k, X[m], uo, vo);
       }
     }
+#pragma unroll
+    for (int m = 0; m < NX; ++m) cnt[m] += __popc(__ballot_sync(FULL, pre[m]));
   }
-  if (n_valid) *n_valid = enough ? cnt : 0;
-  return warp_sum(c);
+#pragma unroll
+  for (int m = 0; m < NX; ++m) {
+    const bool enough = cnt[m] >= 2;
+    if (n_valid) n_valid[m] = enough ? cnt[m] : 0;
+    cost[m] = warp_sum(enough ? c[m] : 0.0f);
+  }
 }
 
 // The segmented inclusive scan of v over lanes whose run starts at lane
@@ -492,14 +551,16 @@ __device__ unsigned landmark_terms(const Problem& p, const Layout& g,
                                    float* B, float* rec, int lane) {
   const Run run = landmark_run(p, l);
   const float X0 = X[0], X1 = X[1], X2 = X[2];
-  const bool enough = count_valid(p, T, run, X0, X1, X2, lane) >= 2;
+  // one pass: the terms of every valid observation and their count; with
+  // fewer than 2 the landmark has no terms (they are dropped below)
+  int cnt = 0;
   float hll[9], bls[3], c = 0.0f;
 #pragma unroll
   for (int q = 0; q < 9; ++q) hll[q] = 0.0f;
 #pragma unroll
   for (int q = 0; q < 3; ++q) bls[q] = 0.0f;
   unsigned mask = 0;
-  for (long long base = run.beg; enough && base < run.end; base += 32) {
+  for (long long base = run.beg; base < run.end; base += 32) {
     const long long o = base + lane;
     const bool in = o < run.end;
     int k = 0;
@@ -597,7 +658,16 @@ __device__ unsigned landmark_terms(const Problem& p, const Layout& g,
       if (write) *dst = add ? *dst + v : v;
     }
     mask |= round_mask;
+    cnt += __popc(__ballot_sync(FULL, valid));
     __syncwarp();
+  }
+  if (cnt < 2) {
+    mask = 0;
+    c = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 9; ++q) hll[q] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) bls[q] = 0.0f;
   }
   float Hd[3][3], Hi[3][3];
 #pragma unroll
@@ -637,8 +707,8 @@ __device__ unsigned landmark_terms(const Problem& p, const Layout& g,
   return mask;
 }
 
-// Entry e of the system's sums, added over the batch's `live` landmarks in
-// order (the buffers of warps 0, 1, ...).
+// Entry e of the system's sums other than S_off's, added over the chunk's
+// `live` landmarks in order (buffers 0, 1, ...).
 __device__ float accumulate(const Layout& g, int e, float acc,
                             const float* lmb, const unsigned* masks,
                             int live) {
@@ -650,15 +720,6 @@ __device__ float accumulate(const Layout& g, int e, float acc,
     const int r = e - g.bp, k = r / 6;
     for (int j = 0; j < live; ++j)
       if ((masks[j] >> k) & 1u) acc += lmb[j * g.lmb + g.lbp + r];
-  } else if (e < g.boff) {
-    const int r = (e - g.soff) / g.n, c = (e - g.soff) % g.n;
-    const int k = r / 6, k2 = c / 6;
-    for (int j = 0; j < live; ++j)
-      if (((masks[j] >> k) & 1u) && ((masks[j] >> k2) & 1u)) {
-        const float* A = lmb + j * g.lmb + g.a + 3 * r;
-        const float* P = lmb + j * g.lmb + g.wpl + 3 * c;
-        acc = fmaf(A[2], P[2], fmaf(A[1], P[1], fmaf(A[0], P[0], acc)));
-      }
   } else if (e < g.cost) {
     const int r = e - g.boff, k = r / 6;
     for (int j = 0; j < live; ++j)
@@ -673,69 +734,310 @@ __device__ float accumulate(const Layout& g, int e, float acc,
   return acc;
 }
 
-// x := M^-1 b for the augmented n x (n + 1) system in shared memory (column
-// n is b), by LU with partial pivoting, the whole block; M is overwritten.
-__device__ void lu_solve_block(float* M, int n, float* x, int* s_piv) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ld = n + 1;
-  for (int k = 0; k < n; ++k) {
-    if (warp == 0) {
-      float best = -1.0f;
-      int piv = n;
-      for (int i = k + lane; i < n; i += 32) {
-        const float v = fabsf(M[i * ld + k]);
-        if (v > best) { best = v; piv = i; }
-      }
+// S_off's 3x3 tile t (rows 3 (t / (n / 3)) + 0..2, columns 3 (t % (n / 3))
+// + 0..2, one keyframe pair): each entry's sum over the chunk's `live`
+// landmarks in order, from 0, as `accumulate` takes it, with the tile's A
+// rows and Wpl columns read once a landmark; written to the chunk's column
+// of the partials.
+__device__ void accumulate_tile(const Layout& g, int t, const float* lmb,
+                                const unsigned* masks, int live,
+                                float* part, int c) {
+  const int m = g.n / 3;
+  const int r0 = 3 * (t / m), c0 = 3 * (t % m);
+  const int k = r0 / 6, k2 = c0 / 6;
+  float s[3][3];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(FULL, best, off);
-        const int op = __shfl_xor_sync(FULL, piv, off);
-        if (ob > best || (ob == best && op < piv)) { best = ob; piv = op; }
-      }
-      if (lane == 0) *s_piv = piv < n ? piv : k;
-    }
-    __syncthreads();
-    const int piv = *s_piv;
-    if (piv != k) {
-      for (int j = k + tid; j <= n; j += THREADS) {
-        const float t = M[k * ld + j];
-        M[k * ld + j] = M[piv * ld + j];
-        M[piv * ld + j] = t;
-      }
-      __syncthreads();
-    }
-    const int w = n - k;
-    const int cnt = (n - k - 1) * w;
-    for (int idx = tid; idx < cnt; idx += THREADS) {
-      const int i = k + 1 + idx / w, j = k + 1 + idx % w;
-      const float l = M[i * ld + k] / M[k * ld + k];
-      M[i * ld + j] = fmaf(-l, M[k * ld + j], M[i * ld + j]);
-    }
-    __syncthreads();
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) s[a][b] = 0.0f;
+  // the landmarks with a share in both keyframes, read at once
+  unsigned both = 0;
+  for (int j = 0; j < live; ++j)
+    both |= (((masks[j] >> k) & (masks[j] >> k2)) & 1u) << j;
+  for (; both; both &= both - 1) {
+    const int j = __ffs(both) - 1;
+    const float* A = lmb + j * g.lmb + g.a + 3 * r0;
+    const float* P = lmb + j * g.lmb + g.wpl + 3 * c0;
+    float av[9], pv[9];
+#pragma unroll
+    for (int q = 0; q < 9; ++q) { av[q] = A[q]; pv[q] = P[q]; }
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        s[a][b] = fmaf(av[3 * a + 2], pv[3 * b + 2],
+                       fmaf(av[3 * a + 1], pv[3 * b + 1],
+                            fmaf(av[3 * a], pv[3 * b], s[a][b])));
   }
-  if (warp == 0) {
-    for (int i = n - 1; i >= 0; --i) {
-      float s = 0.0f;
-      for (int j = i + 1 + lane; j < n; j += 32)
-        s = fmaf(M[i * ld + j], x[j], s);
-      s = warp_sum(s);
-      if (lane == 0) x[i] = (M[i * ld + n] - s) / M[i * ld + i];
-      __syncwarp();
-    }
-  }
-  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      part[(size_t)(g.soff + (r0 + a) * g.n + c0 + b) * g.nchunks + c] =
+          s[a][b];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Chunk c's partial sums of every entry over its `live` landmarks in order
+// (buffer j of lmb holds the chunk's landmark j), straight to the chunk's
+// column of `part`: a thread takes work items tid, tid + THREADS, ...:
+// S_off's tiles first, then the other entries one by one.
+__device__ void chunk_partials(const Layout& g, const float* lmb,
+                               const unsigned* masks, int live, int tid,
+                               float* part, int c) {
+  const int tiles = (g.n / 3) * (g.n / 3);
+  const int items = tiles + g.soff + (g.E - g.boff);
+  for (int it = tid; it < items; it += THREADS) {
+    if (it < tiles) {
+      accumulate_tile(g, it, lmb, masks, live, part, c);
+    } else {
+      const int i = it - tiles;
+      const int e = i < g.soff ? i : g.boff + (i - g.soff);
+      part[(size_t)e * g.nchunks + c] = accumulate(g, e, 0.0f, lmb, masks,
+                                                   live);
+    }
+  }
+}
+
+// The first largest of the lanes' candidates (the first largest |value| of
+// each lane's rows, `at` = n where a lane has none): every lane gets the
+// row `at` (n where no lane has one) and its signed value `val`. A |value|'s
+// bits order as the value does, so two warp reductions find it: the
+// largest key (bits + 1; 0 for none, so a NaN is never picked) and, among
+// the lanes that hold it, the smallest row; ties go to the first row, as in
+// LAPACK's getrf.
+__device__ __forceinline__ void first_largest(float best, int& at, float& val,
+                                              int n) {
+  const unsigned key = at < n ? __float_as_uint(best) + 1u : 0u;
+  const unsigned top = __reduce_max_sync(FULL, key);
+  const unsigned row = __reduce_min_sync(
+      FULL, top != 0u && key == top ? (unsigned)at : (unsigned)n);
+  const int src = top != 0u ? (int)(row & 31u) : 0;
+  val = __shfl_sync(FULL, val, src);
+  at = (int)row;
+}
+
+// Step k of the warp's LU (`lu_solve_warp`) for rows in slots R0..NR-1
+// (the slots before R0 hold no row past k): the exchange of rows k and the
+// pivot's, the multipliers, and the update of columns k + 1 .. n, with the
+// first largest of column k + 1 for step k + 1 in (at, val).
+template <int NR, int R0>
+__device__ __forceinline__ void lu_step(float* M, int n, int ld, int k,
+                                        int lane, float (&ck)[NR], int& at,
+                                        float& val) {
+  constexpr int U = NR <= 2 ? 3 : 1;         // quads read ahead at once
+  const int nq = ld / 4;
+  // the pivot: row `piv` and its value `d`, or row k itself if no row is a
+  // candidate (every |value| NaN)
+  const int piv = at < n ? at : k;
+  float own = 0.0f;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) if ((k >> 5) == r) own = ck[r];
+  const float okk = __shfl_sync(FULL, own, k & 31);   // row k's M[k][k]
+  const float d = at < n ? val : okk;
+  // the multipliers, from registers, while the rows are exchanged
+  float l[NR];
+  bool act[NR];
+#pragma unroll
+  for (int r = R0; r < NR; ++r) {
+    const int i = lane + 32 * r;
+    act[r] = i > k && i < n;
+    // row piv takes the old row k
+    l[r] = act[r] ? (i == piv ? okk : ck[r]) / d : 0.0f;
+  }
+  if (piv != k) {
+    float4* qk = reinterpret_cast<float4*>(M + k * ld);
+    float4* qp = reinterpret_cast<float4*>(M + piv * ld);
+    for (int q = lane; q < nq; q += 32) {
+      const float4 t = qk[q];
+      qk[q] = qp[q];
+      qp[q] = t;
+    }
+    __syncwarp();
+  }
+  const float4* rk = reinterpret_cast<const float4*>(M + k * ld);
+  float4* rows[NR];
+#pragma unroll
+  for (int r = R0; r < NR; ++r)
+    rows[r] = reinterpret_cast<float4*>(M + (act[r] ? lane + 32 * r : k) * ld);
+  // the quad holding column k + 1 (its columns at or before k are dead and
+  // take garbage): column k + 1 stays in ck, and gives this lane's
+  // candidate for the next pivot, its rows in ascending order
+  const int q0 = (k + 1) >> 2, c1 = (k + 1) & 3;
+  float best = -1.0f;
+  at = n;
+  val = 0.0f;
+  {
+    const float4 pk = rk[q0];
+    float4 v[NR];
+#pragma unroll
+    for (int r = R0; r < NR; ++r) v[r] = rows[r][q0];
+#pragma unroll
+    for (int r = R0; r < NR; ++r) {
+      v[r].x = fmaf(-l[r], pk.x, v[r].x);
+      v[r].y = fmaf(-l[r], pk.y, v[r].y);
+      v[r].z = fmaf(-l[r], pk.z, v[r].z);
+      v[r].w = fmaf(-l[r], pk.w, v[r].w);
+      if (act[r]) rows[r][q0] = v[r];
+      const float c = c1 == 0 ? v[r].x : c1 == 1 ? v[r].y
+                      : c1 == 2 ? v[r].z : v[r].w;
+      const bool better = act[r] && fabsf(c) > best;
+      ck[r] = act[r] ? c : ck[r];
+      best = better ? fabsf(c) : best;
+      at = better ? lane + 32 * r : at;
+      val = better ? c : val;
+    }
+  }
+  // the other quads up to the row's end (the padding past n is dead), U at
+  // a time, every read before the writes, then one at a time
+  int q = q0 + 1;
+  for (; q + U <= nq; q += U) {
+    float4 pk[U], v[U][NR];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      pk[u] = rk[q + u];
+#pragma unroll
+      for (int r = R0; r < NR; ++r) v[u][r] = rows[r][q + u];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = R0; r < NR; ++r) {
+        v[u][r].x = fmaf(-l[r], pk[u].x, v[u][r].x);
+        v[u][r].y = fmaf(-l[r], pk[u].y, v[u][r].y);
+        v[u][r].z = fmaf(-l[r], pk[u].z, v[u][r].z);
+        v[u][r].w = fmaf(-l[r], pk[u].w, v[u][r].w);
+        if (act[r]) rows[r][q + u] = v[u][r];
+      }
+  }
+  for (; q < nq; ++q) {
+    const float4 pk = rk[q];
+    float4 v[NR];
+#pragma unroll
+    for (int r = R0; r < NR; ++r) v[r] = rows[r][q];
+#pragma unroll
+    for (int r = R0; r < NR; ++r) {
+      v[r].x = fmaf(-l[r], pk.x, v[r].x);
+      v[r].y = fmaf(-l[r], pk.y, v[r].y);
+      v[r].z = fmaf(-l[r], pk.z, v[r].z);
+      v[r].w = fmaf(-l[r], pk.w, v[r].w);
+      if (act[r]) rows[r][q] = v[r];
+    }
+  }
+  first_largest(best, at, val, n);
+  __syncwarp();
+}
+
+// x := M^-1 b for the augmented n x (n + 1) system in shared memory (rows
+// `ld` floats apart, column n is b), by right-looking LU with partial
+// pivoting (the first largest pivot, as LAPACK's getrf picks it) and
+// back-substitution, on one warp with __syncwarp as its only sync; M is
+// overwritten. Lane j owns rows j + 32 r (r < NR). Step k (`lu_step`): the
+// rows k and the pivot's are exchanged whole (16 bytes a lane); each lane
+// divides its rows' M[i][k], which it holds in registers from the step
+// before, by the pivot, once a row; it updates column k + 1 first, keeping
+// the values, and the other columns 4 at a time (one 16-byte read and
+// write a row); the first largest of column k + 1 is the next pivot.
+// Back-substitution: lane j adds the terms j + 32 c of row i in order with
+// fmaf, then a butterfly; every lane divides and holds x[i], lane 0 stores
+// it; the next row's coefficients and older x are read before that
+// division. Returns whether every x[i] is finite.
+template <int NR>
+__device__ bool lu_solve_warp(float* M, int n, int ld, float* x, int lane) {
+  // step 0's pivot, and this lane's rows' column 0
+  float ck[NR];
+  float best = -1.0f, val = 0.0f;
+  int at = n;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int i = lane + 32 * r;
+    ck[r] = i < n ? M[i * ld] : 0.0f;
+    if (i < n && fabsf(ck[r]) > best) {
+      best = fabsf(ck[r]); at = i; val = ck[r];
+    }
+  }
+  first_largest(best, at, val, n);
+  // slot r holds rows past k while k < 32 r + 31; step n - 1 has nothing
+  // to exchange or update
+  int k = 0;
+  for (; k < n - 1 && k < 31; ++k)
+    lu_step<NR, 0>(M, n, ld, k, lane, ck, at, val);
+  if (NR > 1)
+    for (; k < n - 1 && k < 63; ++k)
+      lu_step<NR, (NR > 1 ? 1 : 0)>(M, n, ld, k, lane, ck, at, val);
+  if (NR > 2)
+    for (; k < n - 1; ++k)
+      lu_step<NR, (NR > 2 ? 2 : 0)>(M, n, ld, k, lane, ck, at, val);
+  PHASE(5)
+  bool ok = true;
+  float xprev = 0.0f;
+  // row i's coefficients and the x it reads besides x[i + 1]
+  float a[NR], xv[NR];
+  auto fetch = [&](int i) {
+#pragma unroll
+    for (int c = 0; c < NR; ++c) {
+      const int j = i + 1 + lane + 32 * c;
+      const bool in = j < n;
+      a[c] = in ? M[i * ld + j] : 0.0f;
+      xv[c] = in && !(c == 0 && lane == 0) ? x[j] : 0.0f;
+    }
+  };
+  fetch(n - 1);
+  for (int i = n - 1; i >= 0; --i) {
+    const float* ri = M + i * ld;
+    const float bi = ri[n], di = ri[i];
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NR; ++c) {
+      const int j = i + 1 + lane + 32 * c;
+      if (j < n) s = fmaf(a[c], c == 0 && lane == 0 ? xprev : xv[c], s);
+    }
+    // row i - 1 reads x[i + 1 ..] (stored) besides x[i] (lane 0, xprev)
+    if (i > 0) fetch(i - 1);
+    s = warp_sum(s);
+    const float xi = (bi - s) / di;
+    ok = ok && isfinite(xi);
+    if (lane == 0) x[i] = xi;
+    xprev = xi;
+    __syncwarp();
+  }
+  return ok;
+}
+
+// Phase B's solve on one warp: x := M^-1 b (`lu_solve_warp`), the step
+// zeroed unless every entry is finite and on the pinned poses, then the
+// step's poses sNew = se3_exp(x_k) sT_k.
+__device__ void solve_step_warp(float* M, int n, int ld, float* x,
+                                int n_fixed, const float* sT, float* sNew,
+                                int* s_ok, int lane) {
+  bool ok;
+  if (n <= 32) ok = lu_solve_warp<1>(M, n, ld, x, lane);
+  else if (n <= 64) ok = lu_solve_warp<2>(M, n, ld, x, lane);
+  else ok = lu_solve_warp<3>(M, n, ld, x, lane);
+  for (int r = lane; r < n; r += 32) {
+    float v = ok ? x[r] : 0.0f;
+    if (r / 6 < n_fixed) v = 0.0f;
+    x[r] = v;
+  }
+  if (lane == 0) *s_ok = ok;
+  __syncwarp();
+  const int W = n / 6;
+  if (lane < W) {
+    for (int q = 0; q < 16; ++q) sNew[16 * lane + q] = sT[16 * lane + q];
+    se3_update(x + 6 * lane, sNew + 16 * lane);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 window_gn_kernel(Problem p, Outputs out, Work wk) {
-  extern __shared__ float sm[];
-  __shared__ unsigned s_mask[WARPS];
+  extern __shared__ __align__(16) float sm[];
+  __shared__ unsigned s_mask[CHUNK];
   __shared__ float s_lm[CHUNK];
   __shared__ int s_cnt[CHUNK];
-  __shared__ int s_piv, s_ok, s_accept;
+  __shared__ int s_ok, s_accept;
   __shared__ float s_cost_prev, s_improve;
 
   cg::grid_group grid = cg::this_grid();
+  PHASE_INIT
   const Layout g = layout(p.W, p.L);
   const int W = p.W, n = g.n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -743,11 +1045,13 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
   float* sT = sm;                 // the poses
   float* sNew = sT + 16 * W;      // the step's poses
   float* sInv = sNew + 16 * W;    // the input poses' inverses
-  float* sDev = sInv + 16 * W;    // the prior's deviations
-  float* sX = sDev + 6 * W;       // the step
-  float* acc = sm + g.pose_floats;
-  float* lmb = acc + g.E;
-  float* M = acc;
+  // the prior's deviations se3_log(T T_init^-1) of the poses (sDev) and of
+  // the step's poses (sDevN); an accepted step swaps them
+  float* sDev = sInv + 16 * W;
+  float* sDevN = sDev + 6 * W;
+  float* sX = sDevN + 6 * W;      // the step
+  float* lmb = sm + g.pose_floats;   // A: a landmark's buffer, a chunk's
+  float* M = lmb;                    // B: the system
 
   // the landmarks of chunk c's batch b, for warp `warp`
   const auto landmark = [&](int c, int b) {
@@ -769,11 +1073,12 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
       if (l < p.L) {
         const float* X = p.landmarks + 3 * l;
         if (lane < 3) out.landmarks[3 * l + lane] = X[lane];
+        const float Xs[1][3] = {{X[0], X[1], X[2]}};
+        float cost[1];
         int nv;
-        const float cost = landmark_cost(p, sT, landmark_run(p, l), X[0],
-                                         X[1], X[2], lane, &nv);
+        landmark_costs<1>(p, sT, landmark_run(p, l), Xs, lane, cost, &nv);
         if (lane == 0) {
-          s_lm[l - c * CHUNK] = cost;
+          s_lm[l - c * CHUNK] = cost[0];
           s_cnt[l - c * CHUNK] = nv;
         }
       }
@@ -797,29 +1102,28 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
     nv = warp_sum(nv);
     if (lane == 0) { *out.cost_initial = c0; *out.n_obs = nv; }
   }
+  PHASE(0)
 
   int it = 0;
   bool go = p.iters > 0;
   while (go) {
     // A. the landmarks' terms and the chunks' partial sums
     for (int c = blockIdx.x; c < g.nchunks; c += gridDim.x) {
-      for (int e = tid; e < g.E; e += THREADS) acc[e] = 0.0f;
       for (int b = 0; b < BATCHES; ++b) {
-        const int l = landmark(c, b);
+        const int l = landmark(c, b), j = l - c * CHUNK;
         if (l < p.L) {
           const unsigned mask = landmark_terms(
-              p, g, sT, l, out.landmarks + 3 * l, lmb + warp * g.lmb,
+              p, g, sT, l, out.landmarks + 3 * l, lmb + j * g.lmb,
               wk.lmstore + (size_t)l * g.lms, lane);
-          if (lane == 0) { s_mask[warp] = mask; wk.lmmask[l] = mask; }
+          if (lane == 0) { s_mask[j] = mask; wk.lmmask[l] = mask; }
         }
-        __syncthreads();
-        const int live = live_in(c * CHUNK + b * WARPS, WARPS);
-        for (int e = tid; e < g.E; e += THREADS)
-          acc[e] = accumulate(g, e, acc[e], lmb, s_mask, live);
-        __syncthreads();
       }
-      for (int e = tid; e < g.E; e += THREADS)
-        wk.part[(size_t)e * g.nchunks + c] = acc[e];
+      __syncthreads();
+      PHASE(1)
+      chunk_partials(g, lmb, s_mask, live_in(c * CHUNK, CHUNK), tid, wk.part,
+                     c);
+      __syncthreads();
+      PHASE(2)
     }
     grid.sync();
     // the totals: a warp an entry
@@ -829,9 +1133,10 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
       if (lane == 0) wk.total[e] = v;
     }
     grid.sync();
+    PHASE(3)
     // B. every block: the reduced system, its solve and the step's poses
     const float* tot = wk.total;
-    if (prior && tid < W)
+    if (prior && it == 0 && tid < W)
       se3_log_of_product(sT + 16 * tid, sInv + 16 * tid, sDev + 6 * tid);
     __syncthreads();
     for (int idx = tid; idx < n * n; idx += THREADS) {
@@ -844,36 +1149,27 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
         s = s + p.damping;
         if (prior) s = s + p.prior_w;
       }
-      M[r * (n + 1) + cc] = s;
+      M[r * g.ld + cc] = s;
     }
     for (int r = tid; r < n; r += THREADS) {
       float bv = tot[g.bp + r] - tot[g.boff + r];
       if (prior) bv = bv - p.prior_w * sDev[r];
-      M[r * (n + 1) + n] = bv;
+      M[r * g.ld + n] = bv;
     }
     if (tid == 0)
       s_cost_prev = prior ? tot[g.cost] + prior_cost(sDev, n, p.prior_w)
                           : tot[g.cost];
     __syncthreads();
-    lu_solve_block(M, n, sX, &s_piv);
-    if (tid == 0) {
-      bool ok = true;
-      for (int r = 0; r < n; ++r) ok = ok && isfinite(sX[r]);
-      s_ok = ok;
-    }
+    PHASE(4)
+    if (warp == 0)
+      solve_step_warp(M, n, g.ld, sX, p.n_fixed, sT, sNew, &s_ok, lane);
     __syncthreads();
-    if (tid < n) {
-      float v = s_ok ? sX[tid] : 0.0f;
-      if (tid / 6 < p.n_fixed) v = 0.0f;
-      sX[tid] = v;
-    }
-    __syncthreads();
-    if (tid < W) {
-      for (int q = 0; q < 16; ++q) sNew[16 * tid + q] = sT[16 * tid + q];
-      se3_update(sX + 6 * tid, sNew + 16 * tid);
-    }
-    __syncthreads();
-    // C. back-substitution and the two landmark costs
+    PHASE(6)
+    // C. the step's poses' deviations (the last warp), back-substitution
+    // and the two landmark costs
+    if (prior && warp == WARPS - 1 && lane < W)
+      se3_log_of_product(sNew + 16 * lane, sInv + 16 * lane,
+                         sDevN + 6 * lane);
     for (int c = blockIdx.x; c < g.nchunks; c += gridDim.x) {
       for (int b = 0; b < BATCHES; ++b) {
         const int l = landmark(c, b);
@@ -903,14 +1199,15 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
           if (!(s_ok && run.lmv)) v = 0.0f;
           dxl[m] = v < -5.0f ? -5.0f : (v > 5.0f ? 5.0f : v);
         }
-        const float C0 = X0 + dxl[0], C1 = X1 + dxl[1], C2 = X2 + dxl[2];
-        const float lmA = landmark_cost(p, sNew, run, C0, C1, C2, lane,
-                                        nullptr);
-        const float lmB = landmark_cost(p, sNew, run, X0, X1, X2, lane,
-                                        nullptr);
+        // lmA at the candidate, lmB at X
+        const float Xs[2][3] = {{X0 + dxl[0], X1 + dxl[1], X2 + dxl[2]},
+                                {X0, X1, X2}};
+        float lm[2];
+        landmark_costs<2>(p, sNew, run, Xs, lane, lm);
+        const float lmA = lm[0], lmB = lm[1];
         if (lane == 0) {
-          wk.cand[3 * l] = C0; wk.cand[3 * l + 1] = C1;
-          wk.cand[3 * l + 2] = C2;
+          wk.cand[3 * l] = Xs[0][0]; wk.cand[3 * l + 1] = Xs[0][1];
+          wk.cand[3 * l + 2] = Xs[0][2];
           wk.better[l] = lmA <= lmB;
           // torch.minimum: NaN if either is NaN
           s_lm[l - c * CHUNK] = (lmA != lmA || lmB != lmB)
@@ -926,15 +1223,14 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
       }
       __syncthreads();
     }
+    PHASE(7)
     grid.sync();
+    PHASE(8)
     // D. every block: the step's acceptance and the exit; the step applied
-    if (prior && tid < W)
-      se3_log_of_product(sNew + 16 * tid, sInv + 16 * tid, sDev + 6 * tid);
-    __syncthreads();
     if (warp == 0) {
       float mixed = chunk_sum(wk.cpart, g.nchunks, lane);
       if (lane == 0) {
-        if (prior) mixed = mixed + prior_cost(sDev, n, p.prior_w);
+        if (prior) mixed = mixed + prior_cost(sDevN, n, p.prior_w);
         const float cp = s_cost_prev;
         const bool accept = mixed < cp;
         const float cl = cp < 1e-12f ? 1e-12f : cp;
@@ -944,6 +1240,9 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
     }
     __syncthreads();
     if (s_accept) {
+      float* t = sDev;
+      sDev = sDevN;
+      sDevN = t;
       if (tid < 16 * W) sT[tid] = sNew[tid];
       for (int c = blockIdx.x; c < g.nchunks; c += gridDim.x)
         for (int b = 0; b < BATCHES; ++b) {
@@ -955,6 +1254,7 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
     ++it;
     go = it < p.iters && s_improve > p.rel_tol;
     __syncthreads();
+    PHASE(9)
   }
 
   // end: the cost at the final state
@@ -963,9 +1263,10 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
       const int l = landmark(c, b);
       if (l < p.L) {
         const float* X = out.landmarks + 3 * l;
-        const float cost = landmark_cost(p, sT, landmark_run(p, l), X[0],
-                                         X[1], X[2], lane, nullptr);
-        if (lane == 0) s_lm[l - c * CHUNK] = cost;
+        const float Xs[1][3] = {{X[0], X[1], X[2]}};
+        float cost[1];
+        landmark_costs<1>(p, sT, landmark_run(p, l), Xs, lane, cost);
+        if (lane == 0) s_lm[l - c * CHUNK] = cost[0];
       }
     }
     __syncthreads();
@@ -985,6 +1286,10 @@ window_gn_kernel(Problem p, Outputs out, Work wk) {
     }
     if (tid < 16 * W) out.poses[tid] = sT[tid];
   }
+#ifdef YAVO_K5_PHASES
+  __syncthreads();
+  PHASE(10)
+#endif
 }
 
 size_t shared_bytes(const Layout& g) {
@@ -992,6 +1297,18 @@ size_t shared_bytes(const Layout& g) {
 }
 
 }  // namespace
+
+#ifdef YAVO_K5_PHASES
+extern "C" int yavo_window_gn_phases(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, k5_phase_cycles,
+                                       sizeof(k5_phase_cycles));
+  if (e != cudaSuccess) return (int)e;
+  void* ptr = nullptr;
+  if ((e = cudaGetSymbolAddress(&ptr, k5_phase_cycles)) != cudaSuccess)
+    return (int)e;
+  return (int)cudaMemset(ptr, 0, sizeof(k5_phase_cycles));
+}
+#endif
 
 extern "C" long long yavo_window_gn_workspace(int W, int L) {
   if (W < 1 || W > WMAX || L < 0) return 0;

@@ -16,8 +16,10 @@ tex_size=1024, q_max=48, mip_levels=4, noise_sigma=0)` at 376x1241):
   pose_gn           K4 against its plain version on a seeded problem and
                     on a real step's solve inputs (`pose_gn_parity`);
   window_gn         K5 against JAX's recorded window solves
-                    (`check_window_gn_goldens`) and against its plain
-                    version on the full-width one (`window_gn_parity`).
+                    (`check_window_gn_goldens`), bit for bit against its
+                    own recorded outputs (`check_window_gn_bits`), and
+                    against its plain version on the full-width one
+                    (`window_gn_parity`).
 Parity only (the `*_parity` functions): no timing, so a profiler that
 drops events cannot fail the guard. Prints one JSON line a check and a
 summary line; exits 1 if any check failed or could not run, 2 without a
@@ -1267,6 +1269,199 @@ def check_window_gn_goldens(device="cuda", cases=WINDOW_CASES,
 
 
 # ---------------------------------------------------------------------------
+# K5's recorded bits: its outputs on the cases below, bit for bit, as the
+# kernel that recorded them (`port_window_gn.py record`) gave them
+# ---------------------------------------------------------------------------
+WINDOW_BITS = WINDOW_DATA / "k5_bits.npz"
+# the live backend's settings (VOConfig().ba: two pinned poses, the prior)
+WINDOW_LIVE = dict(iters=8, huber_delta=2.4477, damping=1e-4,
+                   n_fixed_poses=2, rel_tol=1e-3, pose_prior_weight=100.0)
+# `scaling_bench.window_problem(WINDOW_BITS_L, W, seed)` for each (W, seeds)
+WINDOW_BITS_L = 4096
+WINDOW_BITS_SEEDED = ((8, 16), (12, 4), (16, 4))
+# the recorded goldens (and phase 5's last window) again at iters 0 and at
+# 8 iterations with no early exit
+WINDOW_BITS_ITERS = ("synthetic", "full_width", "phase5")
+# the card tests' other shapes: W 16 with and without the prior,
+# global_refine's prior of 10 on a frontend window, one pinned pose at W 2
+WINDOW_SHAPES = ("w16_prior", "w16_no_prior", "frontend0_refine",
+                 "frontend1_w2")
+# the case of phase 5's last window, whose problem the file keeps under
+# WINDOW_PHASE5_INPUT
+WINDOW_PHASE5 = "phase5"
+WINDOW_PHASE5_INPUT = "phase5_input"
+
+
+def window_shape_problem(name: str, device="cuda"):
+    """(problem, camera, keywords) of one of WINDOW_SHAPES; the W 16 window
+    (`scaling_bench.window_problem(2048, 16)`) made on the CPU."""
+    from ya_vo_tpu_torch.parallel import scaling_bench
+
+    kw = dict(iters=8, huber_delta=2.4477, damping=1e-4, rel_tol=1e-3)
+    if name.startswith("w16"):
+        prob = window.BAProblem(*(t.to(device) for t in
+                                  scaling_bench.window_problem(2048, 16)))
+        prior = 100.0 if name == "w16_prior" else 0.0
+        return prob, synthetic.kitti_camera(), dict(
+            kw, n_fixed_poses=2, pose_prior_weight=prior)
+    if name == "frontend0_refine":
+        prob, cam, _, _ = load_window_case("frontend0", device)
+        return prob, cam, dict(kw, n_fixed_poses=2, pose_prior_weight=10.0)
+    check(name == "frontend1_w2", f"no window shape {name}")
+    prob, cam, _, _ = load_window_case("frontend1", device)
+    two = window.BAProblem(
+        prob.poses[:2], prob.pose_valid[:2], prob.landmarks, prob.lm_valid,
+        prob.obs_uv[:2], prob.obs_lm[:2], prob.obs_valid[:2])
+    return two, cam, dict(kw, n_fixed_poses=1, pose_prior_weight=100.0)
+
+
+def window_bits_keys() -> list:
+    """The keys of the recorded cases, in recording order."""
+    keys = [*WINDOW_CASES, WINDOW_PHASE5]
+    keys += [f"{n}_iters{i}" for n in WINDOW_BITS_ITERS for i in (0, 8)]
+    keys += list(WINDOW_SHAPES)
+    keys += [f"seeded_w{W}_s{s}" for W, n in WINDOW_BITS_SEEDED
+             for s in range(n)]
+    return keys
+
+
+def save_window_problem(prefix: str, prob, cam, kw: dict) -> dict:
+    """A window problem, its camera and keywords as numpy arrays keyed
+    `<prefix>:<name>` (obs_lm as int32)."""
+    out = {f"{prefix}:{k}": (v.to(torch.int32) if k == "obs_lm" else v)
+           .cpu().numpy() for k, v in prob._asdict().items()}
+    out[f"{prefix}:cam"] = np.asarray(cam, np.float64)
+    out[f"{prefix}:kw"] = np.asarray(json.dumps(kw))
+    return out
+
+
+def load_window_problem(z, prefix: str, device="cuda"):
+    """(prob, cam, kw) kept by `save_window_problem` in the open npz `z`."""
+    prob = window.BAProblem(*(
+        torch.as_tensor(z[f"{prefix}:{k}"]).to(
+            torch.int64 if k == "obs_lm" else None).to(device)
+        for k in window.BAProblem._fields))
+    return (prob, Camera.create(*z[f"{prefix}:cam"]),
+            json.loads(str(z[f"{prefix}:kw"])))
+
+
+def window_bits_case(key: str, device="cuda", phase5=None):
+    """(prob, cam, kw) of the recorded case `key`; phase 5's window from
+    `phase5`, (prob, cam, kw) or an open npz that keeps it."""
+    from ya_vo_tpu_torch.parallel import scaling_bench
+
+    base, _, iters = key.partition("_iters")
+    if key.startswith("seeded_w"):
+        W, s = (int(v) for v in key[len("seeded_w"):].split("_s"))
+        prob = window.BAProblem(*(t.to(device) for t in
+                                  scaling_bench.window_problem(
+                                      WINDOW_BITS_L, W, seed=s)))
+        return prob, synthetic.kitti_camera(), dict(WINDOW_LIVE)
+    if key in WINDOW_SHAPES:
+        return window_shape_problem(key, device)
+    if base == WINDOW_PHASE5:
+        if isinstance(phase5, tuple):
+            prob, cam, kw = phase5
+            prob = window.BAProblem(*(t.to(device) for t in prob))
+        else:
+            prob, cam, kw = load_window_problem(phase5, WINDOW_PHASE5_INPUT,
+                                                device)
+    else:
+        check(base in WINDOW_CASES, f"no recorded window case {key}")
+        prob, cam, kw, _ = load_window_case(base, device)
+    if iters:
+        kw = dict(kw, iters=int(iters),
+                  rel_tol=kw["rel_tol"] if int(iters) == 0 else -1.0)
+    return prob, cam, kw
+
+
+def window_inputs_digest(prob, cam, kw: dict) -> str:
+    """sha256 of a case's inputs: every tensor's bytes, the intrinsics and
+    the keywords."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in prob:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    h.update(np.asarray(cam, np.float64).tobytes())
+    h.update(json.dumps(kw, sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def window_gn_outputs(prob, cam, **kw) -> dict:
+    """`solve_window`'s outputs as numpy arrays of their bits (floats
+    viewed as int32), keyed by WINDOW_OUTPUTS."""
+    r = window.solve_window(prob, cam, **kw)
+    if prob.poses.is_cuda:
+        sync_within("window_gn")
+    as_bits = lambda t: t.contiguous().view(torch.int32).cpu().numpy()  # noqa: E731
+    return dict(poses=as_bits(r.poses), landmarks=as_bits(r.landmarks),
+                cost_initial=as_bits(r.cost_initial),
+                cost_final=as_bits(r.cost_final),
+                n_obs=np.int64(int(r.n_obs)), n_iters=np.int64(int(r.n_iters)))
+
+
+def window_result_from_bits(z, key: str, device="cpu"):
+    """The recorded outputs of case `key` as a `window.BAResult`."""
+    f = lambda name: torch.as_tensor(z[f"{key}:{name}"]).view(  # noqa: E731
+        torch.float32).to(device)
+    return window.BAResult(f("poses"), f("landmarks"), f("cost_initial"),
+                           f("cost_final"), int(z[f"{key}:n_obs"]),
+                           int(z[f"{key}:n_iters"]))
+
+
+def record_window_gn_bits(path, phase5, device="cuda") -> int:
+    """Write `window_gn_outputs` of every case of `window_bits_keys` to
+    `path` (npz: `<case>:<output>`, `<case>:digest` of its inputs, and
+    phase 5's window problem `phase5` = (prob, cam, kw) under
+    WINDOW_PHASE5_INPUT); returns the number of cases."""
+    rec = save_window_problem(WINDOW_PHASE5_INPUT, *phase5)
+    keys = window_bits_keys()
+    for key in keys:
+        prob, cam, kw = window_bits_case(key, device, phase5)
+        rec[f"{key}:digest"] = np.asarray(window_inputs_digest(prob, cam,
+                                                               kw))
+        for name, v in window_gn_outputs(prob, cam, **kw).items():
+            rec[f"{key}:{name}"] = v
+    rec["keys"] = np.asarray(json.dumps(keys))
+    np.savez_compressed(path, **rec)
+    return len(keys)
+
+
+def check_window_gn_bits(path=WINDOW_BITS, device="cuda", keys=None) -> dict:
+    """K5 against its recorded outputs, bit for bit, on every case (or
+    `keys`), two calls each, one launch a call; each case's inputs must
+    have the digest they were recorded with."""
+    bad, n = [], 0
+    before = _build.LAUNCHES["window_gn"]
+    with np.load(path) as ref:
+        recorded = json.loads(str(ref["keys"]))
+        for key in keys or recorded:
+            prob, cam, kw = window_bits_case(key, device, ref)
+            check(window_inputs_digest(prob, cam, kw)
+                  == str(ref[f"{key}:digest"]),
+                  f"window_gn bits {key}: the inputs differ from the "
+                  f"recorded ones")
+            a = window_gn_outputs(prob, cam, **kw)
+            b = window_gn_outputs(prob, cam, **kw)
+            n += 1
+            diff = [k for k, v in a.items()
+                    if not np.array_equal(v, ref[f"{key}:{k}"])]
+            if any(not np.array_equal(v, b[k]) for k, v in a.items()):
+                diff.append("two calls differ")
+            if diff:
+                bad.append(f"{key} ({', '.join(diff)})")
+    launches = _build.LAUNCHES["window_gn"] - before
+    check(n > 0 and (keys or n == len(recorded)),
+          f"window_gn bits: {n} cases, {len(recorded)} recorded")
+    check(launches == (2 * n if device != "cpu" else 0),
+          f"window_gn bits: {launches} launches for {2 * n} calls")
+    check(not bad, f"window_gn: {len(bad)} of {n} cases differ from the "
+          f"recorded bits: {'; '.join(bad[:10])}")
+    return dict(cases=n, differing=0, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # the renderer, BRIEF and K3 against numpy
 # ---------------------------------------------------------------------------
 def parity_sequence(device="cuda") -> scene.TexturedSequence:
@@ -1442,6 +1637,7 @@ def main() -> int:
     def window_gn():
         prob, cam, kw, _ = load_window_case("full_width")
         return dict(goldens=check_window_gn_goldens(),
+                    bits=check_window_gn_bits(),
                     full_width=window_gn_parity(prob, cam, **kw))
 
     run("window_gn", window_gn)
