@@ -1,0 +1,16 @@
+"""driver.wait_ms_per_frame.drives: the `step.wait` spans (the host blocked
+on a record's copies in `_finish_track`), ms a pose returned, from the
+program's span store (`ya_vo_tpu_torch.utils.profiling`, on while the traced
+run's profiler runs); None where the program has no such store or no such
+span."""
+
+
+def read(run):
+    try:
+        from ya_vo_tpu_torch.utils.profiling import summary
+    except ImportError:
+        return None
+    st = summary().spans.get("step.wait")
+    if st is None or not run.frames_done:
+        return None
+    return st.ms / run.frames_done

@@ -65,6 +65,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import enum
+import itertools
 import logging
 import os
 import pickle
@@ -87,6 +88,7 @@ from ya_vo_tpu_torch.geometry.triangulation import triangulate_fast
 from ya_vo_tpu_torch.parallel import dist_ba
 from ya_vo_tpu_torch.parallel import mesh as mesh_lib
 from ya_vo_tpu_torch.tracking import lk_cuda, pose_solver, step_graph
+from ya_vo_tpu_torch.utils import profiling
 from ya_vo_tpu_torch.utils.convert import DEVICE_KEYS, offsets_from_numpy
 from ya_vo_tpu_torch.worldmap.mapstore import MapStore
 
@@ -97,6 +99,9 @@ _log = logging.getLogger("ya_vo_tpu_torch.frontend")
 RECORD_KEYS = ("n_flow", "n_ba", "n_kp", "n_matches", "is_kf", "n_new",
                "pose", "keep", "flow_ok", "inlier", "dest", "src",
                "anchor_uv", "valid", "r_pts", "track_uv")
+
+# each frontend's serial, the session id of its spans (utils/profiling)
+_SESSIONS = itertools.count(1)
 
 
 class VOStatus(enum.Enum):
@@ -228,6 +233,7 @@ class Frontend:
                  step_graphs: bool = True):
         """`step_graphs=False` runs every tracking dispatch as the eager
         step (on the card, for comparisons with the graphs' replays)."""
+        self.serial = next(_SESSIONS)
         _check_supported(config)
         # geometry runs in true float32 on the card
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,6 +245,7 @@ class Frontend:
             raise RuntimeError(
                 "no CUDA device: the frontend runs on the card by default; "
                 "pass device='cpu' to run the plain versions on the CPU")
+        sp = profiling.begin("session.create", session=self.serial)
         self.K = cam.K(self.device)
         fc = config.features
         self._offsets = offsets_from_numpy(
@@ -349,6 +356,7 @@ class Frontend:
         if config.ba.enabled and config.ba.asynchronous:
             # warm the solver's first launches on the backend stream
             self._ba_executor.submit(self._precompile_window_ba)
+        profiling.end(sp)
 
     # ------------------------------------------------------------------ #
     def _ingest(self, img) -> torch.Tensor:
@@ -514,6 +522,7 @@ class Frontend:
 
     def _push_state_to_device(self) -> None:
         """Rebuild ALL device tracking state from the host mirrors."""
+        sp = profiling.begin("state.push")
         self._push_map_state_to_device()
         dev = self.device
         self._d_pose = torch.tensor(self.last_pose, device=dev)
@@ -528,6 +537,7 @@ class Frontend:
         self._d_fsk = torch.tensor(self._frames_since_kf, device=dev)
         self._d_slot_stamp = torch.zeros_like(self._d_slot_stamp)
         self._state_dirty = False
+        profiling.end(sp)
 
     def sync_host_state(self) -> None:
         """Copy the device track table into the host mirrors (before a
@@ -555,12 +565,14 @@ class Frontend:
     def _process_sync(self, img_dev: torch.Tensor) -> FrameResult:
         t0 = time.perf_counter()
         if self.status == VOStatus.INIT or self.last_img is None:
+            sp = profiling.begin("session.bootstrap", frame=self.frame_id)
             kp, desc = self._extract(img_dev)
             res = self._handle_init(img_dev, kp, desc)
             res.n_keypoints = int(kp.count())
             if res.is_keyframe:         # bootstrap succeeded
                 self._kf_img = img_dev
                 self.track_anchor_uv = self.track_uv.copy()
+            profiling.end(sp)
         else:
             if self._state_dirty:
                 self._push_state_to_device()
@@ -705,6 +717,7 @@ class Frontend:
         replay of the fresh or the redo graph; else the eager step, which
         the frontend's first dispatch runs as the graphs' warm-up before
         their capture."""
+        sp = profiling.begin("step.dispatch", frame=self.frame_id)
         t0 = time.perf_counter()
         args = self._step_args(img, prev_override)
         g = self._graphs
@@ -724,10 +737,12 @@ class Frontend:
          self._d_kf_mask, self._d_kf_pose, self._d_kf_img, self._d_kf_ref,
          self._d_fsk, self._d_track_uv, self._d_slot_stamp,
          self._d_prev_img) = state_out
-        return dict(frame_id=self.frame_id, img=img, prev_img=prev_img,
-                    kp=kp, desc=desc, prev_kp=self.last_kp,
-                    prev_desc=self.last_desc, pull=self._pull(record), t0=t0,
-                    post_corr=None)
+        rec = dict(frame_id=self.frame_id, img=img, prev_img=prev_img,
+                   kp=kp, desc=desc, prev_kp=self.last_kp,
+                   prev_desc=self.last_desc, pull=self._pull(record), t0=t0,
+                   post_corr=None)
+        profiling.end(sp)
+        return rec
 
     def _finish_track(self, rec: dict) -> FrameResult:
         """Evaluate the state-machine gates and replay the device-made
@@ -735,7 +750,9 @@ class Frontend:
         tc = self.cfg.tracking
         host, event = rec["pull"]
         if event is not None:
+            sp = profiling.begin("step.wait")
             event.synchronize()
+            profiling.end(sp)
         r = dict(zip(RECORD_KEYS, (h.numpy() for h in host)))
         kp, desc = rec["kp"], rec["desc"]
         n_flow, n_ba, n_kp = int(r["n_flow"]), int(r["n_ba"]), int(r["n_kp"])
@@ -866,8 +883,12 @@ class Frontend:
                 self._ba_deferred = True
                 self.n_ba_deferred += 1
                 return
+        # an asynchronous solve's `ba.window` is the worker's
+        # (`_solve_on_backend`)
+        sp = None if bc.asynchronous else profiling.begin("ba.window")
         job = self._build_window_problem()
         if job is None:
+            profiling.end(sp)
             return
         prob, slots, used, n_real = job
         self._last_ba_prob = prob
@@ -879,7 +900,7 @@ class Frontend:
                 ready.record()
             self._ba_pending = dict(
                 fut=self._ba_executor.submit(self._solve_on_backend, prob,
-                                             ready),
+                                             ready, self.frame_id),
                 prob=prob, slots=slots, used=used, n_real=n_real,
                 anchor_old=anchor_old, epoch=self._session_epoch,
                 kf_stamp=self.map.kf_stamp_counter,
@@ -889,19 +910,27 @@ class Frontend:
         self.ba_ms.append(ms)
         self._apply_ba_result(new_poses, new_lms, slots, used, n_real,
                               anchor_old, ms)
+        profiling.end(sp)
 
     def _solve(self, prob):
         """One window solve on the current stream (sharded over the mesh
         when `_dist_ba` is built; else `solve_window`: K5 on the card),
         read back to numpy: ((poses, landmarks), wall ms)."""
+        sp = profiling.begin("ba.solve")
         t0 = time.perf_counter()
+        res = None
         if self._dist_ba is not None:
             poses, lms = self._solve_window_distributed(prob)
         else:
             res = ba_window.solve_window(prob, self.cam, **self._window_kw)
             poses, lms = res.poses, res.landmarks
         out = (self._np(poses), self._np(lms))
-        return out, (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        if res is not None and profiling.on():
+            # K5's device count, after the read-back above has waited
+            profiling.count("ba.gn_iters", int(res.n_iters))
+        profiling.end(sp)
+        return out, ms
 
     def _maybe_build_dist_ba(self) -> None:
         """Build the landmark-sharded window solver when the mesh
@@ -940,13 +969,18 @@ class Frontend:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._ba_stream)
 
-    def _solve_on_backend(self, prob, ready):
+    def _solve_on_backend(self, prob, ready, frame=None):
         """The worker's solve, on the backend stream once the frontend
-        stream has reached `ready` (the problem's uploads)."""
-        with self._backend_stream():
-            if ready is not None:
-                self._ba_stream.wait_event(ready)
-            return self._solve(prob)
+        stream has reached `ready` (the problem's uploads); its `ba.window`
+        span carries the keyframe `frame` that launched it."""
+        sp = profiling.begin("ba.window", session=self.serial, frame=frame)
+        try:
+            with self._backend_stream():
+                if ready is not None:
+                    self._ba_stream.wait_event(ready)
+                return self._solve(prob)
+        finally:
+            profiling.end(sp)
 
     def _precompile_window_ba(self) -> None:
         """Warm the solver (the sharded one when built) on the backend (on
@@ -1003,12 +1037,14 @@ class Frontend:
         BAProblem on the device. Returns (prob, slots, used, n_real) or
         None when the window holds fewer than `min_keyframes` (default
         `ba.min_keyframes`) keyframes."""
+        sp = profiling.begin("ba.build")
         bc = self.cfg.ba
         W = self.cfg.map.window_size
         slots, poses, obs_uv, obs_lm, obs_valid = self.map.active_window(W)
         n_real = len(slots)
         if n_real < (bc.min_keyframes if min_keyframes is None
                      else min_keyframes):
+            profiling.end(sp)
             return None
         # pad the window to the static shape [W, O]
         O = obs_uv.shape[1]
@@ -1052,6 +1088,7 @@ class Frontend:
             obs_uv=torch.tensor(uv_p, device=dev),
             obs_lm=torch.tensor(lm_compact.astype(np.int64), device=dev),
             obs_valid=torch.tensor(ok_p, device=dev))
+        profiling.end(sp)
         return prob, slots, used, n_real
 
     def _apply_ba_result(self, new_poses, new_lms, slots, used, n_real,
@@ -1064,9 +1101,11 @@ class Frontend:
         live landmarks outside the window by the anchor keyframe's
         correction, re-anchor the live chain and mark the device state
         dirty (push)."""
+        sp = profiling.begin("ba.apply")
         new_poses = new_poses[:n_real]
         if not (np.all(np.isfinite(new_poses))
                 and np.all(np.isfinite(new_lms))):
+            profiling.end(sp)
             return
         bc = self.cfg.ba
         if kf_stamp_snap is not None:
@@ -1087,6 +1126,7 @@ class Frontend:
                         "async BA: 3 consecutive staleness discards; "
                         "widening the staleness window to %d",
                         bc.max_stale_keyframes + self._stale_relax)
+                profiling.end(sp)
                 return
             self._consec_stale_discards = 0
             self._stale_relax = max(0, self._stale_relax - 1)
@@ -1112,6 +1152,7 @@ class Frontend:
                 "sync" if kf_stamp_snap is None else "async", t_corr, step,
                 r_corr)
             self._maybe_dump_rejected_solve(new_poses, t_corr, r_corr)
+            profiling.end(sp)
             return
         self._last_ba_ms = ms
         self.n_ba_runs += 1
@@ -1168,6 +1209,7 @@ class Frontend:
             self._apply_corr_device(corr)
         else:
             self._state_dirty = True
+        profiling.end(sp)
 
     def _apply_corr_device(self, corr: np.ndarray) -> None:
         """`apply_mode="device"`: compose a BA apply into the device chain.
@@ -1444,22 +1486,38 @@ class Frontend:
         The next frame's upload is issued before the current one is
         processed; with `pipelined`, gates resolve pipeline_depth - 1
         frames after dispatch."""
-        it = iter(frames)
-        nxt = next(it, None)
-        pending = self._to_device(nxt) if nxt is not None else None
-        while pending is not None:
-            current = pending
-            nxt = next(it, None)
-            pending = self._to_device(nxt) if nxt is not None else None
-            if pipelined:
-                self._pipe_step(current)
-            else:
-                self.process(current)
-        self._pipe_flush()
-        self.finish()
+        # the root of the session's spans: it closes, and drops, any span
+        # inside that an exception left open
+        sp = profiling.begin("session.run", session=self.serial)
+        try:
+            it = iter(frames)
+            fid = self.frame_id + 1    # the id the next frame will take
+            pending = self._upload(next(it, None), fid)
+            while pending is not None:
+                current = pending
+                fid += 1
+                pending = self._upload(next(it, None), fid)
+                if pipelined:
+                    self._pipe_step(current)
+                else:
+                    self.process(current)
+            self._pipe_flush()
+            self.finish()
+        finally:
+            profiling.end(sp)
         if not self.trajectory:
             return np.zeros((0, 4, 4), np.float32)
         return np.stack(self.trajectory)
+
+    def _upload(self, img, frame: int) -> Optional[torch.Tensor]:
+        """`run`'s upload of its next frame `img` (None at the sequence's
+        end), which will take the id `frame`."""
+        if img is None:
+            return None
+        sp = profiling.begin("frame.upload", frame=frame)
+        img = self._to_device(img)
+        profiling.end(sp)
+        return img
 
     def _pipe_step(self, img_dev: torch.Tensor) -> None:
         """Dispatch this frame's step, then resolve the oldest in-flight
@@ -1494,6 +1552,7 @@ class Frontend:
         frames dispatched after it are redone against it."""
         fid = self.frame_id
         self.frame_id = rec["frame_id"]
+        sp = profiling.begin("step.resolve", frame=self.frame_id)
         try:
             res = self._finish_track(rec)
             res.timings_ms["frame"] = (time.perf_counter() - rec["t0"]) * 1e3
@@ -1507,6 +1566,7 @@ class Frontend:
             self.trajectory.append(self.last_pose.copy())
             self._emit(res)
         finally:
+            profiling.end(sp)
             self.frame_id = fid
         if dirty and self._pending_q:
             self._redo_queue()
@@ -1517,9 +1577,11 @@ class Frontend:
         dispatched under its own frame id with its original LK template
         image and keeps its original predecessor pair for a reset; in INIT
         each is handled synchronously by `_handle_init`."""
+        sp = profiling.begin("step.redo")
         if self._state_dirty:
             self._push_state_to_device()
         if not self._pending_q:
+            profiling.end(sp)
             return
         redos = list(self._pending_q)
         self._pending_q.clear()
@@ -1556,6 +1618,7 @@ class Frontend:
                     self._emit(res2)
                 finally:
                     self.frame_id = fid
+        profiling.end(sp)
 
     # ------------------------------------------------------------------ #
     @contextlib.contextmanager

@@ -57,6 +57,7 @@ import torch
 
 from ya_vo_tpu_torch import _build
 from ya_vo_tpu_torch.features.fast import Keypoints
+from ya_vo_tpu_torch.utils import profiling
 
 # `_step_body`'s state outputs, each with the index of the `_step_args`
 # buffer it is written back into: the track table and keyframe context, the
@@ -159,10 +160,12 @@ class StepGraphs:
         extraction (kp, desc) of the dispatch just made, then both
         variants: on the card, captured as graphs; on the CPU, their static
         outputs at the first run."""
+        sp = profiling.begin("graph.capture")
         self.bufs = [torch.empty_like(a) for a in args]
         self.pre_bufs = [torch.empty_like(t) for t in (kp.uv, kp.mask, desc)]
         self.variants = {}
         if self.stream is None:
+            profiling.end(sp)
             return
         self._lib = _build.library()
         for name in ("fresh", "redo"):
@@ -172,6 +175,7 @@ class StepGraphs:
                                       capture_error_mode="thread_local"):
                     out = self._body(name == "redo")
             self.variants[name] = _Graph(graph, out, counts, taps)
+        profiling.end(sp)
 
     def _body(self, redo: bool):
         """The step on the static buffers, the next state written back into
@@ -211,7 +215,9 @@ class StepGraphs:
             self._copy_in(self.pre_bufs, (pre[0].uv, pre[0].mask, pre[1]))
         v = self.variants.get("redo" if redo else "fresh")
         if self.stream is not None:
+            sp = profiling.begin("graph.replay")
             v.graph.replay()
+            profiling.end(sp)
             _build.count_replay(v.counts)
             for t, fn in v.taps:
                 fn(t.clone())
