@@ -175,7 +175,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the eager step (`step_graphs=False`) in this process: phase 5's frames
      (VOConfig(), the stamps world) and phase 8's (its first TEXTURED_N
      frames, rendered before the runs), each side a fresh frontend through
-     the bootstrap (frames 0-1), then the rest pipelined and timed:
+     the bootstrap (frames 0-1), then the rest pipelined and timed, each
+     resolving at the depth cap (`_record_ready` pinned to not landed):
      trajectories bit for bit, resets, relocalizations, keyframes, solves,
      discards, redone dispatches and every kernel's launches equal, the
      graphs replayed at every dispatch but the first (the capture's
@@ -1340,6 +1341,10 @@ def _graph_side(frames, cam, step_graphs: bool, profiled: bool) -> dict:
     _build.reset_launches()
     fe = create_frontend(VOConfig(), cam, device="cuda",
                          step_graphs=step_graphs)
+    # which frames resolve before the depth cap follows the host's timing,
+    # which the two sides do not share: both resolve at the cap, so they
+    # redo the same frames and launch the same kernels
+    fe._record_ready = lambda rec: False
     fe.run(frames[:2])                      # INIT + two-view bootstrap
     torch.cuda.synchronize()
     n = len(frames) - 2

@@ -4,7 +4,7 @@ CPU: off, a site records and allocates nothing and never touches CUDA; on
 with their parents, self times and request ids, on kineto's clock;
 `idle_by_span` splits idle gaps by overlap; `trace` writes the spans into
 its Chrome trace; a tiny `Frontend.run` emits the program's spans; and the
-benchmark's nine readers of the store (`vo_bench/metrics/`) read it. The
+benchmark's ten readers of the store (`vo_bench/metrics/`) read it. The
 card's clock is held by tests/test_torch_profiling_card.py."""
 
 import gc
@@ -35,7 +35,8 @@ READERS = ("driver.upload_ms_per_frame.drives",
            "driver.wait_ms_per_frame.drives",
            "driver.redo_ms_per_frame.drives",
            "ba.window_ms_per_solve.drives",
-           "ba.gn_iters_per_solve.drives")
+           "ba.gn_iters_per_solve.drives",
+           "driver.inflight_per_resolve.drives")
 
 
 @pytest.fixture(autouse=True)
@@ -407,6 +408,35 @@ def test_frontend_run_emits_its_spans(frontend_runs):
                for s in sp if s.name != "session.create")
 
 
+def test_frontend_counts_frames_in_flight_a_resolve(frontend_runs):
+    """One `driver.inflight` event a resolve, under its `step.resolve`: the
+    frames in flight, the resolved one included; the CPU resolves at the
+    depth cap, so a full queue reads `pipeline_depth`. The benchmark's
+    reader returns their mean."""
+    from vo_bench import run as bench_run
+
+    fe, sp = frontend_runs["fe"], frontend_runs["spans"]
+    by_id = {s.id: s for s in sp}
+    counts = [c for c in frontend_runs["counts"]
+              if c.name == "driver.inflight"]
+    resolves = [s for s in sp if s.name == "step.resolve"]
+    assert len(counts) == len(resolves) >= 1
+    assert all(by_id[c.parent].name == "step.resolve" for c in counts)
+    assert sorted(by_id[c.parent].frame for c in counts) == \
+        sorted(s.frame for s in resolves)
+    depth = fe.cfg.tracking.pipeline_depth
+    assert all(1 <= c.n <= depth for c in counts)
+    assert max(c.n for c in counts) == depth
+    read = bench_run.load_reader(bench_run.HERE,
+                                 "driver.inflight_per_resolve.drives")
+    run = SimpleNamespace(frames_done=frontend_runs["n"])
+    assert read(run) is None                    # no counter in the store
+    with profiling.recording():
+        for c in counts:
+            profiling.count(c.name, c.n)
+    assert read(run) == sum(c.n for c in counts) / len(counts)
+
+
 # ---------------------------------------------------------------------------
 # the benchmark's readers of the store
 # ---------------------------------------------------------------------------
@@ -426,6 +456,7 @@ def _synthetic_run() -> None:
             leaf("graph.replay")
             profiling.end(d)
             r = profiling.begin("step.resolve", frame=f)
+            profiling.count("driver.inflight", 1 + (f == 2))
             leaf("step.wait")
             if f == 2:
                 w = profiling.begin("ba.window")
@@ -460,6 +491,8 @@ def test_benchmark_reader(metric):
     assert v is not None and math.isfinite(v) and v > 0
     if metric == "ba.gn_iters_per_solve.drives":
         assert v == 3.0
+    if metric == "driver.inflight_per_resolve.drives":
+        assert v == 10 / 8
     if metric == "driver.dispatch_ms_per_frame.drives":
         fresh = profiling.summary(outside="step.redo").spans["step.dispatch"]
         assert fresh.count == 8 and v == fresh.self_ms / 8

@@ -129,6 +129,86 @@ def test_pipelined_matches_sync_exactly(sequence, corrupt):
     assert fe_pipe.n_redone > 0 and fe_sync.n_redone == 0
 
 
+def _readiness(fe, ready):
+    """Patch the frontend's `_record_ready` on the instance: "never" (the
+    CPU runner's own answer: resolve at the depth cap), "always" (every
+    record landed at once) or "coin" (a seeded draw at each query)."""
+    if ready == "coin":
+        rng = np.random.default_rng(18)
+        fe._record_ready = lambda rec: bool(rng.random() < 0.5)
+    else:
+        fe._record_ready = lambda rec: ready == "always"
+    return fe
+
+
+@pytest.fixture(scope="module")
+def sync_and_pipelined(sequence):
+    """Per corruption: the port's synchronous run and its pipelined run as
+    the CPU resolves it (at the depth cap)."""
+    imgs, _, _, cam = sequence
+    out = {}
+    for corrupt in (None, "blackout"):
+        seq = blackout(imgs) if corrupt else list(imgs)
+        fe_sync, fe_pipe = port(cam), port(cam)
+        fe_sync.run(seq, pipelined=False)
+        fe_pipe.run(seq, pipelined=True)
+        out[corrupt] = seq, fe_sync, fe_pipe
+    return out
+
+
+@pytest.mark.parametrize("corrupt", [None, "blackout"])
+@pytest.mark.parametrize("ready", ["never", "always", "coin"])
+def test_pipelined_matches_sync_whenever_records_land(
+        sequence, sync_and_pipelined, corrupt, ready):
+    """Under push the pipelined driver resolves each frame once its record
+    has landed (`_record_ready`), before and after each dispatch, with
+    `pipeline_depth` as a cap: whatever lands when, it is bit-equal to the
+    synchronous driver. Never landed is the depth-8 driver with its redos;
+    always landed resolves each frame right after its dispatch and redoes
+    nothing."""
+    cam = sequence[3]
+    seq, fe_sync, fe_depth = sync_and_pipelined[corrupt]
+    fe = _readiness(port(cam), ready)
+    traj = fe.run(seq, pipelined=True)
+    np.testing.assert_array_equal(np.stack(fe_sync.trajectory), traj)
+    for key in ("status", "is_keyframe", "n_ba_inliers"):
+        assert [getattr(r, key) for r in fe_sync.results] == \
+            [getattr(r, key) for r in fe.results]
+    assert fe.n_resets == fe_sync.n_resets == (1 if corrupt else 0)
+    assert fe.n_ba_runs == fe_sync.n_ba_runs
+    if ready == "never":
+        assert fe.n_redone == fe_depth.n_redone > 0
+    if ready == "always":
+        assert fe.n_redone == 0
+
+
+def test_device_apply_keeps_the_fixed_depth(sequence):
+    """Under `apply_mode="device"` the frames in flight at an apply are
+    rotated when they resolve, so the driver resolves at the fixed depth
+    whatever has landed: the same frames in flight at every resolve and
+    the same trajectory, bit for bit."""
+    from ya_vo_tpu_torch.utils import profiling
+
+    imgs, _, _, cam = sequence
+    cfg = e2e_config(sync_ba=True, apply_mode="device")
+    cfg = dataclasses.replace(cfg, ba=dataclasses.replace(
+        cfg.ba, distributed="off"))
+    runs = []
+    for ready in ("never", "always", "coin"):
+        fe = _readiness(tfrontend.Frontend(
+            cfg, convert.camera_from_numpy(cam), device="cpu"), ready)
+        with profiling.recording() as w:
+            traj = fe.run(list(imgs), pipelined=True)
+        inflight = [c.n for c in w.counts() if c.name == "driver.inflight"]
+        runs.append((traj, inflight, fe))
+    (traj0, inflight0, fe0), *others = runs
+    assert fe0.n_ba_runs >= 1 and max(inflight0) > 1
+    for traj, inflight, fe in others:
+        np.testing.assert_array_equal(traj0, traj)
+        assert inflight == inflight0
+        assert fe.n_ba_runs == fe0.n_ba_runs
+
+
 @pytest.mark.parametrize("name,relocalizations", [("blackout", 1),
                                                   ("scene", 0)])
 def test_reset_path_matches_jax(sequence, jax_runs, monkeypatch, name,

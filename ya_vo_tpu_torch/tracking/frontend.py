@@ -29,15 +29,21 @@ step instead, for comparisons. On the CPU the runner handles its buffers
 as on the card, with the body run in place of a replay.
 
 Tracking state lives as tensors on `device`. Each frame's record is copied
-with `non_blocking` copies into pinned host memory behind a CUDA event, so
-the host resolves a frame `pipeline_depth - 1` frames after dispatching it
-without stalling the card. When a resolve rebuilds host state (bootstrap,
-reset, relocalization, a BA apply under `apply_mode="push"`), the state is
-pushed and every in-flight frame is re-dispatched against it, reusing its
-extraction: the pipelined driver's results are the synchronous driver's,
-bit for bit. Under `apply_mode="device"` a BA apply is composed into the
+with `non_blocking` copies into pinned host memory behind a CUDA event.
+When a resolve rebuilds host state (bootstrap, reset, relocalization, a BA
+apply under `apply_mode="push"`), the state is pushed and every in-flight
+frame is re-dispatched against it, reusing its extraction: the pipelined
+driver's results are the synchronous driver's, bit for bit, however many
+frames are in flight. So under push the driver resolves each frame as soon
+as its record has landed (the event's `query()`, which never blocks),
+before and after each dispatch, and `pipeline_depth` only caps the frames
+in flight: the fewer in flight at a dirty resolve, the fewer redone. On the
+CPU a record has no event and counts as not landed, so frames resolve at
+the cap. Under `apply_mode="device"` a BA apply is composed into the
 device chain in place instead, and the frames in flight are rotated into
-the corrected frame when they resolve: no push, no redo.
+the corrected frame when they resolve: no push, no redo, but which frames
+are rotated depends on which are in flight, so that mode keeps resolving a
+frame `pipeline_depth - 1` frames after its dispatch, whatever has landed.
 
 Asynchronous window BA (`ba.asynchronous`) solves on one worker thread.
 On the card that thread issues the solve on a CUDA stream of its own,
@@ -1484,8 +1490,9 @@ class Frontend:
     def run(self, frames, pipelined: bool = True) -> np.ndarray:
         """Drive a whole sequence; returns [F, 4, 4] world->camera poses.
         The next frame's upload is issued before the current one is
-        processed; with `pipelined`, gates resolve pipeline_depth - 1
-        frames after dispatch."""
+        processed; with `pipelined`, gates resolve once a frame's record
+        has landed, at most pipeline_depth - 1 frames after its dispatch
+        (`_pipe_step`)."""
         # the root of the session's spans: it closes, and drops, any span
         # inside that an exception left open
         sp = profiling.begin("session.run", session=self.serial)
@@ -1520,9 +1527,14 @@ class Frontend:
         return img
 
     def _pipe_step(self, img_dev: torch.Tensor) -> None:
-        """Dispatch this frame's step, then resolve the oldest in-flight
-        frame once pipeline_depth frames are queued. Bootstrap frames drain
-        the queue and run synchronously."""
+        """Resolve the in-flight frames whose records have landed, dispatch
+        this frame's step, resolve the landed ones again, then block on the
+        oldest while `pipeline_depth` frames are queued: under push the
+        depth is a cap, not a wait (`_resolve_landed`). Resolving first lets
+        a reset found there send this frame down the synchronous path, and a
+        dirty resolve push with nothing in flight to redo. Bootstrap frames
+        drain the queue and run synchronously."""
+        self._resolve_landed()
         self.frame_id += 1
         self._poll_ba()
         img_dev = self._ingest(img_dev)
@@ -1537,8 +1549,28 @@ class Frontend:
         self._pending_q.append(rec)
         self.last_img = img_dev
         self.last_kp, self.last_desc = rec["kp"], rec["desc"]
+        self._resolve_landed()
         depth = max(1, self.cfg.tracking.pipeline_depth)
         while len(self._pending_q) >= depth:
+            self._resolve_record(self._pending_q.popleft())
+
+    def _record_ready(self, rec: dict) -> bool:
+        """Whether a dispatched frame's record has landed on the host: its
+        copies' CUDA event, queried without blocking. The CPU runner's plain
+        copies carry no event and count as not landed."""
+        event = rec["pull"][1]
+        return event is not None and event.query()
+
+    def _resolve_landed(self) -> None:
+        """Under `apply_mode="push"`, resolve the oldest in-flight frames
+        for as long as their records have landed (`_record_ready`). Push
+        results do not depend on which frames are in flight; under
+        `apply_mode="device"` they do (the frames in flight at an apply are
+        rotated when they resolve), so that mode resolves at the fixed
+        depth alone."""
+        if self.cfg.ba.apply_mode != "push":
+            return
+        while self._pending_q and self._record_ready(self._pending_q[0]):
             self._resolve_record(self._pending_q.popleft())
 
     def _pipe_flush(self) -> None:
@@ -1547,12 +1579,16 @@ class Frontend:
             self._resolve_record(self._pending_q.popleft())
 
     def _resolve_record(self, rec: dict) -> None:
-        """Finish a dispatched frame. When its resolve rebuilt host state
+        """Finish a dispatched frame, popped from the head of the queue:
+        under push as soon as its record has landed, else at the depth cap
+        or a flush (`_pipe_step`). When its resolve rebuilt host state
         (reset, relocalization, BA apply), the state is pushed and the
-        frames dispatched after it are redone against it."""
+        frames dispatched after it are redone against it. Counts the frames
+        in flight, this one included (`driver.inflight`)."""
         fid = self.frame_id
         self.frame_id = rec["frame_id"]
         sp = profiling.begin("step.resolve", frame=self.frame_id)
+        profiling.count("driver.inflight", len(self._pending_q) + 1)
         try:
             res = self._finish_track(rec)
             res.timings_ms["frame"] = (time.perf_counter() - rec["t0"]) * 1e3
