@@ -17,7 +17,14 @@ state before them:
   the cross-checked matches (`n_flow`, `n_ba`, `n_matches`);
 - keep: share of LK's live slots whose LK status or pose-inlier flag
   differs;
-- flow_px: widest gap (px) of a tracked position kept by both;
+- flow_moved: share of the slots kept by both whose tracked positions
+  differ by more than a tenth of LK's stopping step (`lk_eps`) in either
+  coordinate, or are not finite: a slot whose last step lands on `lk_eps`
+  may stop one iteration apart on the two sides, so the widest gap swings
+  by up to a step with rounding alone, while the share stays put;
+- flow_px: the widest gap (px) of a tracked position kept by both (not
+  finite where a position is not), held to a few LK steps: a handful of
+  slots tracked wrong, too few for `flow_moved`'s share;
 - pose_rot: angle (degrees) of the step's pose against the reference's;
 - pose_trans: the poses' translation gap over the frame's motion;
 - landmarks: infinite where the keyframe decision or the merged table
@@ -64,8 +71,8 @@ from vo_bench.reference import step as ref_step
 from vo_bench.reference import window as ref_window
 from vo_bench.reference.precision import TF32
 
-STEP_NUMBERS = ("kp", "desc", "counts", "keep", "flow_px", "pose_rot",
-                "pose_trans", "landmarks", "replay")
+STEP_NUMBERS = ("kp", "desc", "counts", "keep", "flow_moved", "flow_px",
+                "pose_rot", "pose_trans", "landmarks", "replay")
 WINDOW_NUMBERS = ("ba_cost", "ba_pose", "apply", "push")
 BOOT_NUMBERS = ("boot_rot", "boot_t", "boot_inlier")
 NUMBERS = STEP_NUMBERS + WINDOW_NUMBERS + BOOT_NUMBERS
@@ -98,7 +105,7 @@ def _pose_gap(P: torch.Tensor, R: torch.Tensor, T_in: torch.Tensor):
             float(torch.linalg.norm(D[:3, 3])) / max(motion, 1e-6))
 
 
-def track_numbers(cand: dict, ref: dict, x: dict) -> dict:
+def track_numbers(cand: dict, ref: dict, x: dict, lk_eps: float) -> dict:
     """Extraction, LK and pose GN: the candidate's outputs against the
     reference's `track` on the same inputs."""
     out = {}
@@ -114,9 +121,9 @@ def track_numbers(cand: dict, ref: dict, x: dict) -> dict:
     out["keep"] = _share((cand["flow_ok"] != ref["flow_ok"])
                          | (cand["inlier"] != ref["inlier"]), ref["use"])
     kept = cand["keep"] & ref["keep"]
-    out["flow_px"] = (float((cand["flow_uv"] - ref["flow_uv"]).abs()
-                            .amax(-1)[kept].max()) if bool(kept.any())
-                      else 0.0)
+    gap = (cand["flow_uv"] - ref["flow_uv"]).abs().amax(-1)
+    out["flow_moved"] = _share(~(gap <= 0.1 * lk_eps), kept)
+    out["flow_px"] = float(gap[kept].max()) if bool(kept.any()) else 0.0
     out["pose_rot"], out["pose_trans"] = _pose_gap(cand["pose"], ref["pose"],
                                                    x["pose"])
     return out
@@ -284,7 +291,7 @@ def judge(audit, vo: dict, cam, control: bool = False) -> dict:
                 cand = ref_step.step(x, vo, cam, low=True)
         else:
             cand = program_outputs(s)
-        nums = track_numbers(cand, ref, x)
+        nums = track_numbers(cand, ref, x, vo["tracking"]["lk_eps"])
         rep = replenish_numbers(cand, ref_step.replenish(x, vo, cam, cand))
         nums["counts"] = max(nums["counts"], rep.pop("counts"))
         nums.update(rep)
@@ -329,7 +336,9 @@ def judge(audit, vo: dict, cam, control: bool = False) -> dict:
         detail.append(nums)
         for k, v in nums.items():
             out[k].append(v)
-    res = {k: max(v) for k, v in out.items() if v}
+    # the worst sample; NaN, which no limit holds, counts as the worst
+    res = {k: max(v, key=lambda x: math.inf if math.isnan(x) else x)
+           for k, v in out.items() if v}
     res["samples"], res["solves"] = len(audit.steps), len(audit.solves)
     res["applies"], res["pushes"] = len(audit.applies), len(audit.pushes)
     res["bootstraps"] = len(audit.boots)

@@ -6,26 +6,30 @@
 Everything a cell needs is found by name: the cell's entry in
 `BENCHMARK.json` names its configuration (`vo_bench/configs/<config>.json`)
 and its traffic mix (`vo_bench/traffic/<mix>.json`, read by
-`vo_bench/generator.py` and driven by the driver its `driver` names);
-each metric is a reader of its own
-(`vo_bench/metrics/<metric>.py`); the comparison's limits are
-`vo_bench/limits/<cell>.json`. A new cell or metric is new files and
-entries, not an edit.
+`vo_bench/generator.py`); the mix's `driver` names its loop,
+`vo_bench/drivers/<driver>.py`'s `drive` (`load_driver`; the contract is
+`vo_bench/drivers/__init__.py`'s docstring); each metric is a reader of
+its own (`vo_bench/metrics/<metric>.py`); the comparison's limits are
+`vo_bench/limits/<cell>.json`. All of them are read from the checkout's
+own `vo_bench/`. A new cell, metric or driver is new files and entries,
+not an edit.
 
 A run: set-up (process start to the window's start, `setup_s`): the
 configuration's `host_environment` set, the program's import and CUDA
 context, the kernel library's load (built into
 `build/kernels/<hash>/` in the checkout on a checkout's first run), the
 routes rendered on the card by the frozen renderer and kept as host uint8
-arrays, and a warm session through the bootstrap, the first dispatch
-(where the step graphs are captured) and `precompile()`. Then the window
-of `--seconds`, driven by the mix's driver: `drives` takes the routes in
-order, each through `Frontend.run(frames, pipelined=True)` of a fresh
-`create_frontend` session, until the window closes (the frame source
-stops handing frames at the deadline); the window ends at the return of
-the last call. A run with `--trace 1` reports only the per-layer
-metrics: its window is the mix's `trace_seconds`, all of it under a
-`torch.profiler` session (CUDA activity).
+arrays, and then the driver's own set-up: for `drives`, a warm session
+through the bootstrap, the first dispatch (where the step graphs are
+captured) and `precompile()`. Then the window of `--seconds`, driven by
+the mix's driver: `drives` takes the routes in order, each through
+`Frontend.run(frames, pipelined=True)` of a fresh `create_frontend`
+session, until the window closes (the frame source stops handing frames
+at the deadline); the window ends at the return of the last call. A run
+with `--trace 1` reports only the per-layer metrics: its window is the
+mix's `trace_seconds`, all of it under a `torch.profiler` session (CUDA
+activity); its `breakdown.idle_gaps` splits the device's idle time in
+that window over the program's spans (`idle_gaps`).
 
 After the window: the device's memory peak, the per-layer readings, the
 program's sessions freed, then the comparison (`vo_bench/compare.py`) of
@@ -46,7 +50,6 @@ import math
 import os
 import sys
 import time
-import traceback
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -114,14 +117,26 @@ class Spec:
                 else m["moves"] in reported)]
 
 
-def load_reader(here: Path, name: str):
-    """The metric's reader, `<here>/metrics/<name>.py`'s `read(run)`."""
-    path = here / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "vo_bench_metric_" + name.replace(".", "_"), path)
+def _load(path: Path, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(here: Path, name: str):
+    """The metric's reader, `<here>/metrics/<name>.py`'s `read(run)`."""
+    return _load(here / "metrics" / f"{name}.py",
+                 "vo_bench_metric_" + name.replace(".", "_")).read
+
+
+def load_driver(here: Path, name: str):
+    """The traffic's driver, `<here>/drivers/<name>.py`'s `drive` (the
+    contract: `vo_bench/drivers/__init__.py`)."""
+    path = here / "drivers" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"vo_bench: no driver {name!r} ({path})")
+    return _load(path, "vo_bench_driver_" + name.replace(".", "_")).drive
 
 
 # --------------------------------------------------------------------------
@@ -131,6 +146,7 @@ class Run:
     def __init__(self, spec: Spec):
         self.spec = spec
         self.vo = spec.config["vo"]
+        self.device = None            # the run's torch device
         self.setup_s = math.nan
         self.window_s = math.nan
         self.attempted = 0
@@ -152,12 +168,14 @@ class Tracer:
     """A CUDA profiler session (`torch.profiler`, device activity and the
     CUDA runtime's calls) over the whole window of a traced run, started at
     the end of set-up, so that CUPTI's start-up stays out of the window;
-    a no-op when off."""
+    a no-op when off. `t0_ns`/`t1_ns` bound the window on the profiler's
+    clock (unix-epoch ns, as kineto and the program's spans stamp)."""
 
     def __init__(self, on: bool):
         self.on = on
         self.prof = None
         self.window_s = None
+        self.t0_ns = self.t1_ns = None
 
     def start(self) -> None:
         if not self.on:
@@ -168,6 +186,7 @@ class Tracer:
             ProfilerActivity.CUDA if torch.cuda.is_available()
             else ProfilerActivity.CPU])
         self.prof.start()
+        self.t0_ns = time.time_ns()
 
     def stop(self, t0: float) -> None:
         """Stop once the device is done; the traced window ran from
@@ -178,55 +197,67 @@ class Tracer:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         self.window_s = time.perf_counter() - t0
+        self.t1_ns = time.time_ns()
         self.prof.stop()
 
 
-def reduce_trace(prof, window_s: float) -> dict:
-    """Device busy time (the union of the device events), each kernel's
-    summed device time and events, and the longest idle gaps, named by the
-    CUDA runtime call the host was in at their middle ("host work between
-    CUDA calls" when none)."""
+def idle_gaps(intervals, spans, window) -> tuple:
+    """The breakdown's `idle_gaps`: the device's idle time over `window`
+    ((start_ns, end_ns) on the profiler's clock) between the device's
+    `intervals` ((start_ns, end_ns)), split over the innermost of the
+    program's `spans` that covers each part, `unspanned` where none does
+    (the frozen `idle_by_span`). Returns the ten largest parts as [[name,
+    seconds], ...] and every part, by name."""
     from vo_bench.frozen import trace as ftrace
 
-    spans, kernels, host = [], {}, []
+    parts = ftrace.idle_by_span(intervals, spans, window=window)
+    return [[n, v] for n, v in parts.items()][:10], parts
+
+
+def program_spans() -> list:
+    """The program's span store (`ya_vo_tpu_torch.utils.profiling`, on
+    while a profiler runs); empty where the program has none."""
+    try:
+        from ya_vo_tpu_torch.utils import profiling
+    except ImportError:
+        return []
+    return profiling.spans()
+
+
+def reduce_trace(prof, tracer: Tracer) -> dict:
+    """Device busy time (the union of the device events), each kernel's
+    summed device time and events, and the device's idle time in the
+    traced window by the program's spans (`idle_gaps`)."""
+    from torch.autograd import DeviceType
+
+    from vo_bench.frozen import trace as ftrace
+
+    t = time.perf_counter()
+    intervals, kernels = [], {}
     for e in prof.profiler.kineto_results.events():
-        a = e.start_ns() * 1e-3
-        b = a + e.duration_ns() * 1e-3
-        if str(e.device_type()).endswith("CUDA"):
-            spans.append((a, b))
+        if e.device_type() == DeviceType.CUDA:
+            a = e.start_ns()
+            d = e.duration_ns()
+            intervals.append((a, a + d))
             k = kernels.setdefault(e.name(), [0.0, 0])
-            k[0] += (b - a) * 1e-6
+            k[0] += d * 1e-9
             k[1] += 1
-        else:
-            host.append((a, b, e.name()))
-    _, union = ftrace.busy_us(spans)
-    gaps = []
-    if spans:
-        gaps = ftrace.idle_gaps(spans, min(a for a, _ in spans),
-                                max(b for _, b in spans))
-    host.sort()
-    starts = [h[0] for h in host]
-    named = {}
-    import bisect
-    for a, b in gaps:
-        mid = 0.5 * (a + b)
-        name = "host work between CUDA calls"
-        k = bisect.bisect_right(starts, mid) - 1
-        while k >= 0 and k >= bisect.bisect_right(starts, mid) - 8:
-            if host[k][1] >= mid:
-                name = host[k][2]
-                break
-            k -= 1
-        named[name] = named.get(name, 0.0) + (b - a) * 1e-6
+    t_events = time.perf_counter() - t
+    _, union_ns = ftrace.busy_us(intervals)
+    gaps, parts = idle_gaps(intervals, program_spans(),
+                            (tracer.t0_ns, tracer.t1_ns))
+    log(f"the trace's {len(intervals)} device events read in "
+        f"{t_events:.1f} s, busy and idle time in "
+        f"{time.perf_counter() - t - t_events:.1f} s")
     top_ops = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    return dict(busy_s=union * 1e-6, window_s=window_s, kernels=kernels,
+    return dict(busy_s=union_ns * 1e-9, window_s=tracer.window_s,
+                kernels=kernels,
                 device_ops=[[n[:160], v[0]] for n, v in top_ops],
-                idle_gaps=sorted(([n, v] for n, v in named.items()),
-                                 key=lambda x: -x[1])[:10])
+                idle_gaps=gaps, idle_by_span=parts)
 
 
 # --------------------------------------------------------------------------
-# drivers
+# what the drivers share (`vo_bench/drivers/`)
 # --------------------------------------------------------------------------
 def _finite(pose) -> bool:
     import numpy as np
@@ -243,68 +274,12 @@ def _count(run: Run, fe) -> None:
     c["relocalizations"] += fe.n_relocalizations
 
 
-def drive_routes(run: Run, routes, make_frontend, audit, tracer,
-                 record_keys, seconds: float) -> None:
-    """The closed loop over logged drives (module docstring), for a window
-    of `seconds`."""
-    import numpy as np
-    import torch
-
-    warm = run.spec.traffic["warm_frames"]
-    t = time.perf_counter()
-    fe = make_frontend()
-    fe.run(routes[0].frames[:warm], pipelined=True)
-    fe.precompile()
-    del fe
-    gc.collect()
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    run.setup["warm_session_s"] = time.perf_counter() - t
-    tracer.start()
-    t0 = time.perf_counter()
-    run.setup_s = t0 - T_PROCESS
-    deadline = t0 + seconds
-    t_end = t0
-    session = 0
-    while time.perf_counter() < deadline:
-        route = routes[session % len(routes)]
-        tc = time.perf_counter()
-        fe = make_frontend()
-        run.create_ms.append((time.perf_counter() - tc) * 1e3)
-        audit.attach(fe, session, record_keys)
-        handed = [0]
-
-        def frames(route=route, handed=handed):
-            for img in route.frames:
-                if time.perf_counter() >= deadline:
-                    return
-                handed[0] += 1
-                if tracer.on:
-                    run.traced_frames.append(img)
-                yield img
-
-        try:
-            traj = fe.run(frames(), pipelined=True)
-            ok = sum(_finite(p) for p in traj)
-        except Exception:
-            traceback.print_exc()
-            ok = 0
-        t_end = time.perf_counter()
-        run.attempted += handed[0]
-        run.failed += handed[0] - ok
-        run.frames_done += ok
-        _count(run, fe)
-        n = len(fe.trajectory)
-        if n:
-            run.trajectories.append((np.stack(fe.trajectory),
-                                     route.poses_wc[:n]))
-        session += 1
-        del fe
-    run.window_s = t_end - t0
-    tracer.stop(t0)
-
-
-DRIVERS = {"drives": drive_routes}
+def __getattr__(name: str):
+    # `drive_routes`, the drives driver's name before drivers were files,
+    # for `port_phases.py`, which still calls it so
+    if name == "drive_routes":
+        return load_driver(HERE, "drives")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 # --------------------------------------------------------------------------
@@ -349,9 +324,11 @@ def run_cell(spec: Spec, seed: int, seconds: float, trace: bool,
 
     dev = torch.device(device or "cuda")
     run = Run(spec)
+    run.device = dev
     t = time.perf_counter()
     run.setup["import_s"] = t - T_PROCESS
     tr = spec.traffic
+    drive = load_driver(spec.here, tr["driver"])
     cfg = VOConfig.from_dict(spec.config["vo"])
     if dev.type == "cuda":
         from ya_vo_tpu_torch import _build
@@ -377,11 +354,11 @@ def run_cell(spec: Spec, seed: int, seconds: float, trace: bool,
         au, seed, window, au["first_frame"],
         min(au["last_frame"], tr["frames_per_route"])))
     tracer = Tracer(trace)
-    log(f"{spec.name}: set-up done, the window opens")
+    log(f"{spec.name}: set-up done, the {tr['driver']} driver starts")
     two_view = audit.watch_bootstraps(ransac)
     try:
-        DRIVERS[tr["driver"]](run, routes, make_frontend, audit, tracer,
-                              RECORD_KEYS, window)
+        drive(run, routes, make_frontend, audit, tracer, RECORD_KEYS,
+              window)
     finally:
         ransac.estimate_two_view = two_view
     log(f"{spec.name}: the window closed after {run.window_s:.3f} s, "
@@ -392,8 +369,10 @@ def run_cell(spec: Spec, seed: int, seconds: float, trace: bool,
     mem = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
            else 0)
     if tracer.prof is not None:
-        run.traced = reduce_trace(tracer.prof, tracer.window_s)
+        t = time.perf_counter()
+        run.traced = reduce_trace(tracer.prof, tracer)
         tracer.prof = None
+        log(f"the trace reduced in {time.perf_counter() - t:.1f} s")
     metrics = {}
     for m in (spec.per_layer if trace else spec.end_to_end):
         v = load_reader(spec.here, m["name"])(run)
@@ -404,6 +383,8 @@ def run_cell(spec: Spec, seed: int, seconds: float, trace: bool,
                 attempted=run.attempted, failed=run.failed,
                 frames=run.frames_done, window_s=run.window_s,
                 sessions=len(run.create_ms))
+    if run.traced is not None:
+        info["idle_by_span_s"] = run.traced["idle_by_span"]
     print("run: " + json.dumps(info, default=float), flush=True)
 
     # the program's sessions are gone; the comparison runs on what the
@@ -468,4 +449,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    # one module whether run as `-m vo_bench.run` or imported by a driver,
+    # so that a driver reads this process's `T_PROCESS`
+    sys.modules.setdefault("vo_bench.run", sys.modules[__name__])
     sys.exit(main())

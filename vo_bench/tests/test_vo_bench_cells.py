@@ -11,6 +11,7 @@ import torch
 
 from vo_bench import run as bench_run
 from vo_bench.tests import tiny
+from ya_vo_tpu_torch.utils import profiling
 
 CELLS = tuple(w["name"] for w in json.loads(
     (bench_run.ROOT / "BENCHMARK.json").read_text())["workloads"])
@@ -34,6 +35,10 @@ def test_traced_run_reports_per_layer_metrics():
     assert "driver.redone_per_frame.drives" in out["metrics"]
     assert {"busy_s", "window_s"} <= set(out["device"])
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
+    # the idle gaps by the program's spans, which the window recorded
+    names = {n for n, _ in out["breakdown"]["idle_gaps"]}
+    assert names and names <= {s.name for s in profiling.spans()} | {
+        "unspanned"}
 
 
 def test_no_card_exits_without_a_result(tmp_path):

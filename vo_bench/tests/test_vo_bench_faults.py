@@ -2,10 +2,11 @@
 each fault the cell can have: a step that returns its state unchanged, a
 solve's apply that leaves the state unchanged, a push that leaves the
 device's table as it was, half of the batch left out, an answer altered
-where it is produced (a descriptor bit, the host's merge of a step's new
-landmarks). (A cell on one chip has no exchange between chips to leave
-out.) At a tiny size on the CPU, through the whole run but the look for a
-chip."""
+where it is produced (a descriptor bit, LK's tracked positions all
+moved a little or a handful moved a pixel, the host's merge of a step's
+new landmarks). (A cell on one chip has no exchange between chips to
+leave out.) At a tiny size on the CPU, through the whole run but the look
+for a chip."""
 
 import pytest
 import torch
@@ -48,6 +49,22 @@ def _half_tracked(orig):
     return track
 
 
+def _moved_flow(orig):
+    def track(*a, **kw):
+        flow = orig(*a, **kw)
+        return flow._replace(uv=flow.uv + 0.005)
+    return track
+
+
+def _few_moved(orig):
+    def track(*a, **kw):
+        flow = orig(*a, **kw)
+        # the first five live slots, 1 px off in each coordinate
+        few = flow.status & (torch.cumsum(flow.status.long(), 0) <= 5)
+        return flow._replace(uv=flow.uv + few[:, None].to(flow.uv.dtype))
+    return track
+
+
 def _flipped_bit(orig):
     def describe(*a, **kw):
         desc, mask = orig(*a, **kw)
@@ -67,6 +84,8 @@ FAULTS = {
     "push_stale": (Frontend, "_push_map_state_to_device", _stale_push),
     "half_the_batch": (lk_cuda, "track", _half_tracked),
     "answer_altered": (brief, "describe", _flipped_bit),
+    "flow_altered": (lk_cuda, "track", _moved_flow),
+    "flow_few_altered": (lk_cuda, "track", _few_moved),
     "merge_altered": (MapStore, "add_landmarks", _moved_merge),
 }
 
@@ -82,3 +101,7 @@ def test_fault_is_not_correct(monkeypatch, fault):
     # the run compared its samples, and a number failed its limit
     assert checks.pop("samples")["value"] > 0
     assert any(not c["value"] <= c["limit"] for c in checks.values())
+    if fault == "flow_altered":
+        assert checks["flow_moved"]["value"] > checks["flow_moved"]["limit"]
+    if fault == "flow_few_altered":
+        assert checks["flow_px"]["value"] > checks["flow_px"]["limit"]

@@ -1,6 +1,7 @@
 """The benchmark's frozen copies equal their sources in the port, as at the
 time of copying: the renderer, the trajectory evaluation, the roofline
-yardstick, the device-interval union, and the reference's extraction."""
+yardstick, the device-interval union, the device's idle time by span, and
+the reference's extraction."""
 
 from types import SimpleNamespace
 
@@ -20,7 +21,8 @@ from ya_vo_tpu_torch.core.camera import Camera
 from ya_vo_tpu_torch.features import brief, fast, fast_cuda
 from ya_vo_tpu_torch.tracking.frontend import detect_kwargs
 from ya_vo_tpu_torch.utils import scene as p_scene
-from ya_vo_tpu_torch.utils import synthetic
+from ya_vo_tpu_torch.utils import profiling, synthetic
+from ya_vo_tpu_torch.utils.profiling import Span
 from ya_vo_tpu_torch.viz import evaluation as p_eval
 
 CAM = [359.428, 359.428, 40.0, 12.0]
@@ -121,8 +123,31 @@ def test_busy_union_equal():
                                   device_type=DeviceType.CPU))
     assert f_trace.busy_us(spans) == profile_slice.busy_us(events)
     total, union = f_trace.busy_us(spans)
-    gaps = f_trace.idle_gaps(spans, 0.0, 1100.0)
-    assert union + sum(b - a for a, b in gaps) == pytest.approx(1100.0)
+    idle = f_trace.idle_by_span(spans, [], window=(0.0, 1100.0))
+    assert union * 1e-9 + idle["unspanned"] == pytest.approx(1100e-9)
+
+
+def _program_spans(rng, n):
+    """`n` spans of the program's kind on three threads, nested on each."""
+    out = []
+    for k in range(n):
+        a = int(rng.integers(0, 100_000))
+        out.append(Span(f"s{k % 7}", a, a + int(rng.integers(1, 20_000)),
+                        k + 1, 0, k % 3, None, None))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_idle_by_span_equal(seed):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 100_000, 300)
+    busy = [(int(x), int(x + d)) for x, d in
+            zip(a, rng.integers(1, 400, 300))]
+    sp = _program_spans(rng, 120)
+    for window in (None, (-5_000, 110_000), (20_000, 60_000)):
+        assert f_trace.idle_by_span(busy, sp, window=window) == \
+            profiling.idle_by_span(busy, sp, window=window)
+    assert f_trace.idle_by_span([], sp) == profiling.idle_by_span([], sp)
 
 
 def test_reference_extraction_equals_port():
